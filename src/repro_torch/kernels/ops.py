@@ -4,8 +4,10 @@ A CUDA tensor launches the Hopper kernel (or the launch raises); a tensor
 on the CPU runs the kernel's plain PyTorch version from
 :mod:`repro_torch.kernels.ref`. There is no fallback from one to the
 other. Nothing is padded: the reference padded d and K to 128 lanes and B
-to its batch tile for the TPU, and the kernel masks its ragged edge
-itself. Launches are counted on ``router_xattn.router_xattn_cuda.launches``.
+to its batch tile (``router_xattn``), and N and K to 256-row tiles
+(``pairwise_l2``), for the TPU; each kernel masks its ragged edge itself.
+Launches are counted on ``router_xattn.router_xattn_cuda.launches`` and
+``pairwise_l2.pairwise_l2_cuda.launches``.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.pairwise_l2 import pairwise_l2_cuda
 from repro_torch.kernels.router_xattn import router_xattn_cuda
 
 
@@ -40,3 +43,10 @@ def router_xattn(q, wq, wk, wv, wo, bo, m_emb) -> torch.Tensor:
     """Fused routing scores: q (B, dq), m_emb (K, dm) -> (B, K) fp32."""
     kt, vt = pool_projections(wk, wv, m_emb)
     return router_xattn_pool(q, wq, kt, vt, wo, bo)
+
+
+def pairwise_l2(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Squared L2 distances x (N, d) vs c (K, d) -> (N, K) fp32."""
+    if x.is_cuda:
+        return pairwise_l2_cuda(x, c)
+    return ref.pairwise_l2_ref(x, c)

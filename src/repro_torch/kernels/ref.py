@@ -31,3 +31,11 @@ def router_xattn_ref(q, wq, wk, wv, wo, bo, m_emb):
     kt = m_emb.float() @ wk.float()
     vt = m_emb.float() @ wv.float()
     return router_xattn_pool_ref(q, wq, kt, vt, wo, bo)
+
+
+def pairwise_l2_ref(x, c):
+    """(N, d), (K, d) -> (N, K) squared euclidean distances, fp32."""
+    xf, cf = x.float(), c.float()
+    x2 = torch.sum(xf * xf, dim=1, keepdim=True)
+    c2 = torch.sum(cf * cf, dim=1)
+    return torch.clamp(x2 - 2.0 * (xf @ cf.T) + c2[None, :], min=0.0)

@@ -1,63 +1,29 @@
 """The ``router_xattn`` Hopper kernel: build, bind, launch.
 
-``csrc/router_xattn.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, at first use, into
-``build/repro_torch/`` at the repository root. The library's name carries
-a hash of the source and flags, so an edit rebuilds. It is loaded with
-``ctypes``: pointers come from ``data_ptr()`` and the stream from
-PyTorch's current stream, and the kernel allocates nothing itself.
-
-Nothing here runs at import: the CPU tests import this module on machines
-without ``nvcc`` or a card.
+``csrc/router_xattn.cu`` is compiled by :func:`repro_torch.kernels.build.build`
+into ``build/repro_torch/router_xattn_<hash>.so`` at first use and loaded
+with ``ctypes``. Nothing here runs at import.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Tuple
 
 import torch
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "router_xattn.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from repro_torch.kernels import build as kbuild
+
+SOURCE = kbuild.CSRC / "router_xattn.cu"
 MAX_K = 64   # pool members: two per lane of a warp
 MAX_D = 64   # router latent width: two per lane of a warp
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-
-
 def build() -> Tuple[Path, str]:
-    """Compile the kernel library unless this source is built already.
-
-    Returns the library's path and nvcc's output (ptxas register and
-    shared-memory report; empty when the library was already there).
-    Raises if nvcc fails.
-    """
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"router_xattn_{digest.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)   # atomic: concurrent builders never see half a file
-    return lib, proc.stdout + proc.stderr
+    """Compile the kernel library unless built already: (path, nvcc output)."""
+    return kbuild.build(SOURCE)
 
 
 @functools.cache

@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import pairwise_l2 as pairwise_l2_mod
+from repro_torch.kernels.pairwise_l2 import pairwise_l2_cuda
 from repro_torch.kernels.router_xattn import router_xattn_cuda
 
 pytestmark = pytest.mark.cuda
@@ -19,7 +21,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the router_xattn kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -78,3 +80,75 @@ def test_router_xattn_kernel_wide_inputs(cuda, k, d):
     torch.testing.assert_close(router_xattn_cuda(q, wq, kt, vt, wo, bo),
                                ref.router_xattn_pool_ref(q, wq, kt, vt, wo, bo),
                                rtol=1e-5, atol=1e-5)
+
+
+def _points(seed, n, k, d, device):
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(device)
+    return t(n, d), t(k, d)
+
+
+@pytest.mark.parametrize("n,k,d", [(1, 1, 8), (8, 3, 16), (100, 20, 768), (256, 256, 64),
+                                   (300, 37, 128), (65, 129, 33), (48, 20, 768),
+                                   (64, 4096, 768), (1000, 1000, 1024), (7, 5, 2049)])
+def test_pairwise_l2_kernel_matches_plain(cuda, n, k, d):
+    """Ragged N, K and d on every side of the 64-row tiles and 32-wide slices."""
+    x, c = _points(n * 7 + k + d, n, k, d, cuda)
+    before = pairwise_l2_cuda.launches
+    out = ops.pairwise_l2(x, c)
+    torch.cuda.synchronize()
+    assert pairwise_l2_cuda.launches == before + 1
+    assert out.shape == (n, k) and out.dtype == torch.float32
+    torch.testing.assert_close(out, ref.pairwise_l2_ref(x, c), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("x_bf16,c_bf16", [(True, True), (True, False), (False, True)])
+def test_pairwise_l2_kernel_bf16(cuda, x_bf16, c_bf16):
+    x, c = _points(11, 130, 70, 256, cuda)
+    x = x.to(torch.bfloat16) if x_bf16 else x
+    c = c.to(torch.bfloat16) if c_bf16 else c
+    torch.testing.assert_close(pairwise_l2_cuda(x, c), ref.pairwise_l2_ref(x, c),
+                               rtol=5e-2, atol=5e-2)
+
+
+def test_pairwise_l2_kernel_identical_rows_are_exactly_zero(cuda):
+    ones = torch.ones((8, 32), device=cuda)
+    assert torch.equal(pairwise_l2_cuda(ones, ones), torch.zeros((8, 8), device=cuda))
+    rng = np.random.default_rng(0)
+    e = rng.standard_normal((64, 768))
+    e /= np.linalg.norm(e, axis=1, keepdims=True)
+    x = torch.from_numpy(e.astype(np.float32)).to(cuda)
+    assert torch.equal(torch.diagonal(pairwise_l2_cuda(x, x)), torch.zeros(64, device=cuda))
+
+
+def test_pairwise_l2_kernel_refuses_what_it_does_not_take(cuda):
+    x, c = _points(1, 4, 3, 8, cuda)
+    before = pairwise_l2_cuda.launches
+    with pytest.raises(ValueError, match="on cpu"):
+        pairwise_l2_cuda(x, c.cpu())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        pairwise_l2_cuda(x.double(), c)
+    with pytest.raises(ValueError, match="contiguous"):
+        pairwise_l2_cuda(x.T, c[:, :4])
+    with pytest.raises(ValueError, match="N <="):
+        pairwise_l2_cuda(torch.empty((64 * 65536, 1), device=cuda), c[:, :1].contiguous())
+    assert pairwise_l2_cuda.launches == before
+
+
+def test_pairwise_l2_refused_launch_raises(cuda, monkeypatch):
+    """A launch the runtime refuses never runs; the C entry point returns
+    cudaGetLastError() and the wrapper raises with its message."""
+    class Refusing:
+        def pairwise_l2_launch(self, *args):
+            return 9
+
+        def pairwise_l2_error_string(self, err):
+            return b"invalid configuration argument"
+
+    x, c = _points(2, 4, 3, 8, cuda)
+    before = pairwise_l2_cuda.launches
+    monkeypatch.setattr(pairwise_l2_mod, "_library", Refusing)
+    with pytest.raises(RuntimeError, match="launch failed: invalid configuration"):
+        pairwise_l2_cuda(x, c)
+    assert pairwise_l2_cuda.launches == before

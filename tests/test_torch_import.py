@@ -15,8 +15,14 @@ import pytest
 import torch
 
 from repro_torch.checkpoint import load_router, save_router
-from repro_torch.launch.serve import build_engine, build_pool, init_router
+from repro_torch.core.clustering import assign_clusters, kmeans
+from repro_torch.launch.serve import (
+    build_drift_proto, build_engine, build_pool, build_scheduler, init_router,
+    make_semcache,
+)
+from repro_torch.online.drift import DriftDetector
 from repro_torch.serving.engine import RoutedEngine
+from repro_torch.serving.semcache import SemanticCache, calibrate_radius
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
 
@@ -79,3 +85,24 @@ def test_cpu_entry_points_run_on_the_cpu():
     assert engine.device.type == "cpu"
     assert all(m.device.type == "cpu" for m in engine.pool)
     assert engine.router.device.type == "cpu"
+
+
+def test_cache_drift_and_clustering_without_device_raise_without_cuda(no_cuda):
+    emb = np.random.default_rng(0).standard_normal((16, 8)).astype(np.float32)
+    for call in (lambda: SemanticCache(0.5), lambda: calibrate_radius(emb),
+                 lambda: DriftDetector(), lambda: kmeans(emb, 2),
+                 lambda: assign_clusters(emb, emb[:2]),
+                 lambda: make_semcache(emb, radius=0.5),
+                 lambda: build_drift_proto(emb, None)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_build_scheduler_without_device_raises_without_cuda(no_cuda):
+    engine = build_engine(["qwen3-0.6b"], smoke=True, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_scheduler(engine)
+    cache = SemanticCache(0.5, device="cpu")
+    assert build_scheduler(engine, semcache=cache, device="cpu").semcache is cache
+    with pytest.raises(ValueError, match="runs on cpu"):
+        build_scheduler(engine, device="meta")
