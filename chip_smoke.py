@@ -6,15 +6,17 @@
 Phases (any failure raises and exits non-zero before the last line):
   1. device: the card's name and power limit (nvidia-smi); TF32 off.
   2. build: ``router_xattn`` and ``pairwise_l2`` from src/repro_torch/csrc,
-     one nvcc for each source, both started together; ptxas's register and
-     spill lines.
+     one nvcc for each source, both started together; ptxas's register,
+     spill and shared-memory lines for each kernel instance.
   3. kernel: hold ``router_xattn`` against its plain PyTorch version over
      B x K x d (fp32 within 1e-5, bf16 q within 2e-2) and time both at the
-     serving engine's shape.
+     serving engine's shapes (B 8 and 256), each with the cluster size,
+     grid and shared bytes of its launch (``[launch]``).
   4. pairwise_l2: hold the kernel against its plain version over N x K x d
      (fp32 within 1e-4, bf16 within 5e-2), identical rows exactly 0, and
      time kernel, plain version and the ``torch.cdist`` yardstick at the
-     four shapes the cached serving path gives it.
+     four shapes the cached serving path gives it, each with its launch's
+     cluster size, grid and shared bytes (``[launch]``).
   5. serve: qwen3-0.6b and granite-3-8b at published width and depth, fp32,
      on the card, behind a seeded router; ``engine.serve`` on 8 seeded
      requests, then ``generate_member`` on each member.
@@ -135,8 +137,10 @@ def phase_build(modules) -> None:
         name = os.path.basename(lib).rsplit("_", 1)[0]
         log(f"[build] {os.path.relpath(lib, ROOT)}")
         for line in ptxas.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:     # the kernel instance below
                 log(f"[build] {name} ptxas: {line.split(':', 1)[-1].strip()}")
+            elif "registers" in line or "spill" in line or "smem" in line:
+                log(f"[build] {name} ptxas:   {line.split(':', 1)[-1].strip()}")
     log(f"[build] {len(modules)} libraries in {time.perf_counter() - t0:.2f}s")
 
 
@@ -173,11 +177,16 @@ def time_kernel(rx, ref, b, k, d=20, dq=768) -> dict:
     _, by_name = profile_device(lambda: rx.router_xattn_cuda(*args), n=50)
     device_ms = sum(v for name, v in by_name.items() if "router_xattn" in name) or None
     plain_device_ms, _ = profile_device(lambda: ref.router_xattn_pool_ref(*args), n=50)
+    pl = rx.plan(b, dq, d, k)
+    log(f"[launch] router_xattn B={b} dq={dq} d={d} K={k}: cluster {pl.cluster}, grid "
+        f"{pl.grid} blocks of {pl.threads} threads, {pl.smem} bytes shared per block "
+        f"(Wq slice {pl.slice} rows per rank)")
     log(f"[kernel] B={b} K={k} d={d} dq={dq} fp32: kernel {ms:.5f} ms/call "
         f"(device {device_ms} ms), plain {plain_ms:.5f} ms/call "
         f"(device {plain_device_ms:.5f} ms), bound {bound_ms:.3g} ms ({bound_by})")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "device_ms": device_ms, "plain_device_ms": plain_device_ms}
+            "device_ms": device_ms, "plain_device_ms": plain_device_ms,
+            "cluster": pl.cluster, "grid": pl.grid, "smem_bytes": pl.smem}
 
 
 def profile_device(fn, n=1):
@@ -417,6 +426,10 @@ def time_pairwise(pl2, ref, label, shape) -> dict:
     device_ms = sum(v for name, v in by_name.items() if "pairwise_l2" in name) or None
     plain_device_ms, _ = profile_device(lambda: ref.pairwise_l2_ref(x, c), n=50)
     bound_ms, bound_by = pairwise_l2_bound(n, k, d)
+    pl = pl2.plan(n, k, d)
+    log(f"[launch] pairwise_l2 {label} N={n} K={k} d={d}: cluster {pl.cluster}, grid "
+        f"{pl.grid} = {pl.grid[0] * pl.grid[1]} blocks of {pl.threads} threads, "
+        f"{pl.smem} bytes shared per block ({pl.spr} slices of 32 per rank)")
     log(f"[pairwise_l2] {label} N={n} K={k} d={d} fp32: kernel {ms:.5f} ms/call "
         f"(device {device_ms} ms), plain {plain_ms:.5f} ms/call (device "
         f"{plain_device_ms:.5f} ms), bound {bound_ms:.3g} ms ({bound_by}), "
@@ -424,7 +437,8 @@ def time_pairwise(pl2, ref, label, shape) -> dict:
     return {"call_site": label, "shape": {"N": n, "K": k, "d": d}, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "device_ms": device_ms, "plain_device_ms": plain_device_ms,
-            "library_ms": cdist_ms}
+            "library_ms": cdist_ms, "cluster": pl.cluster, "grid": list(pl.grid),
+            "smem_bytes": pl.smem}
 
 
 def phase_trace(engine, rx, pl2) -> dict:
@@ -637,7 +651,7 @@ def main() -> int:
     t0 = time.perf_counter()
     err = phase_kernel(rx, ref)
     timing = time_kernel(rx, ref, b=N_REQUESTS, k=len(POOL))
-    time_kernel(rx, ref, b=256, k=len(POOL))
+    timing_256 = time_kernel(rx, ref, b=256, k=len(POOL))
     log(f"[kernel] phase wall {time.perf_counter() - t0:.2f}s")
 
     t0 = time.perf_counter()
@@ -677,7 +691,7 @@ def main() -> int:
                              "trace": trace["launches"]["router_xattn"]},
         "max_abs_err": err["float32"], "max_abs_err_bf16": err["bfloat16"],
         "shape": {"B": N_REQUESTS, "K": len(POOL), "d": 20, "dq": 768},
-        **timing, "library_ms": None,
+        **timing, "library_ms": None, "at_B_256": timing_256,
     }, {
         "name": "pairwise_l2", "route": "cuda",
         "source": "src/repro_torch/csrc/pairwise_l2.cu",

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import pairwise_l2 as pairwise_l2_mod
+from repro_torch.kernels import router_xattn as router_xattn_mod
 from repro_torch.kernels.pairwise_l2 import pairwise_l2_cuda
 from repro_torch.kernels.router_xattn import router_xattn_cuda
 
@@ -82,6 +83,42 @@ def test_router_xattn_kernel_wide_inputs(cuda, k, d):
                                rtol=1e-5, atol=1e-5)
 
 
+_ROWS = router_xattn_mod.ROWS
+
+
+@pytest.mark.parametrize("b", [1, _ROWS - 1, _ROWS, _ROWS + 1])
+@pytest.mark.parametrize("dq", [1, 7, 31, 32, 33, 95, 96, 97, 767, 768, 769, 2048, 5000])
+def test_router_xattn_kernel_cluster_edges(cuda, dq, b):
+    """dq one below, at and one above a 32-row tile and a rank's slice (96
+    rows at dq = 768; 5000: three chunks per rank); B on both sides of the
+    rows per cluster. One launch per call."""
+    q, wq, kt, vt, wo, bo = _inputs(dq * 10 + b, b, 5, 20, cuda, dq=dq)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        before = router_xattn_cuda.launches
+        out = router_xattn_cuda(q.to(dtype), wq, kt, vt, wo, bo)
+        torch.cuda.synchronize()
+        assert router_xattn_cuda.launches == before + 1
+        torch.testing.assert_close(
+            out, ref.router_xattn_pool_ref(q.to(dtype), wq, kt, vt, wo, bo),
+            rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("d", [20, 64])
+def test_router_xattn_kernel_wide_inputs_long_query(cuda, d):
+    """N(0, 1) queries of width 2048 split over eight ranks: the rank-order
+    sum of the partials holds 1e-5."""
+    rng = np.random.default_rng(d)
+    t = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(cuda)
+    q, wq, m = t(256, 2048), t(2048, d) * 0.05, t(11, 20)
+    kt, vt = ops.pool_projections(t(20, d) * 0.3, t(20, d) * 0.3, m)
+    wo, bo = t(d, 11) * 0.3, t(11) * 0.1
+    assert router_xattn_mod.plan(256, 2048, d, 11).cluster == 8
+    torch.testing.assert_close(router_xattn_cuda(q, wq, kt, vt, wo, bo),
+                               ref.router_xattn_pool_ref(q, wq, kt, vt, wo, bo),
+                               rtol=1e-5, atol=1e-5)
+
+
 def _points(seed, n, k, d, device):
     rng = np.random.default_rng(seed)
     t = lambda *s: torch.from_numpy(  # noqa: E731
@@ -136,6 +173,53 @@ def test_pairwise_l2_kernel_refuses_what_it_does_not_take(cuda):
     assert pairwise_l2_cuda.launches == before
 
 
+@pytest.mark.parametrize("n,k", [(1, 4096), (48, 20)])
+@pytest.mark.parametrize("d", [1, 31, 32, 33, 95, 96, 97, 767, 768, 769, 1000])
+def test_pairwise_l2_kernel_split_d(cuda, n, k, d):
+    """d one below, at and one above a slice of 32 and a rank's share (96
+    features at d = 768 in the drift window), split over the ranks of a
+    cluster (S > 1 wherever d has more than one slice), odd widths on the
+    4-byte copy path; one launch."""
+    pl = pairwise_l2_mod.plan(n, k, d)
+    assert pl.cluster > 1 or d <= 32
+    x, c = _points(d + n, n, k, d, cuda)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+        before = pairwise_l2_cuda.launches
+        out = pairwise_l2_cuda(x.to(dtype), c.to(dtype))
+        torch.cuda.synchronize()
+        assert pairwise_l2_cuda.launches == before + 1
+        torch.testing.assert_close(out, ref.pairwise_l2_ref(x.to(dtype), c.to(dtype)),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("d", [768, 1000])
+def test_pairwise_l2_kernel_identical_rows_exactly_zero_under_split(cuda, d):
+    rng = np.random.default_rng(d)
+    e = rng.standard_normal((64, d))
+    e /= np.linalg.norm(e, axis=1, keepdims=True)
+    x = torch.from_numpy(e.astype(np.float32)).to(cuda)
+    assert pairwise_l2_mod.plan(64, 64, d).cluster == 8
+    assert torch.equal(torch.diagonal(pairwise_l2_cuda(x, x)), torch.zeros(64, device=cuda))
+    assert torch.equal(torch.diagonal(pairwise_l2_cuda(x[:1], x[:1])),
+                       torch.zeros(1, device=cuda))
+    xb = x.to(torch.bfloat16)
+    assert torch.equal(torch.diagonal(pairwise_l2_cuda(xb, xb)), torch.zeros(64, device=cuda))
+
+
+def test_pairwise_l2_kernel_wide_k(cuda):
+    """K walks gridDim.x, clusters and all, so 64 x 65536 centroids launch
+    (N walks gridDim.y and is refused above 65535 tiles)."""
+    k = 64 * 65536
+    c = torch.arange(k, device=cuda, dtype=torch.float32)[:, None] / k
+    x = torch.tensor([[0.5], [0.25]], device=cuda)
+    assert pairwise_l2_mod.plan(2, k, 1).grid == (65536, 1)
+    before = pairwise_l2_cuda.launches
+    out = pairwise_l2_cuda(x, c)
+    torch.cuda.synchronize()
+    assert pairwise_l2_cuda.launches == before + 1
+    torch.testing.assert_close(out, ref.pairwise_l2_ref(x, c), rtol=1e-4, atol=1e-4)
+
+
 def test_pairwise_l2_refused_launch_raises(cuda, monkeypatch):
     """A launch the runtime refuses never runs; the C entry point returns
     cudaGetLastError() and the wrapper raises with its message."""
@@ -152,3 +236,55 @@ def test_pairwise_l2_refused_launch_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="launch failed: invalid configuration"):
         pairwise_l2_cuda(x, c)
     assert pairwise_l2_cuda.launches == before
+
+
+def test_pairwise_l2_refused_cluster_does_not_resurface(cuda, monkeypatch):
+    """A cluster above the portable 8 blocks is refused by the runtime: the
+    wrapper raises, and the next good launch neither fails nor reports the
+    refused one's error."""
+    x, c = _points(4, 48, 20, 768, cuda)
+    good = pairwise_l2_mod.plan
+    monkeypatch.setattr(pairwise_l2_mod, "plan",
+                        lambda *a: good(*a)._replace(cluster=16, spr=2))
+    before = pairwise_l2_cuda.launches
+    with pytest.raises(RuntimeError, match="pairwise_l2 launch failed"):
+        pairwise_l2_cuda(x, c)
+    assert pairwise_l2_cuda.launches == before
+    monkeypatch.setattr(pairwise_l2_mod, "plan", good)
+    out = pairwise_l2_cuda(x, c)
+    torch.cuda.synchronize()
+    assert pairwise_l2_cuda.launches == before + 1
+    torch.testing.assert_close(out, ref.pairwise_l2_ref(x, c), rtol=1e-4, atol=1e-4)
+
+
+def test_router_xattn_refused_launch_raises_after_the_cap_is_raised(cuda, monkeypatch):
+    """The shared-memory cap is raised once per instance; a launch the
+    runtime refuses later (a plan above the card's 227 KB) still never runs,
+    the wrapper raises each time, and the next good plan launches."""
+    q, wq, kt, vt, wo, bo = _inputs(3, 8, 5, 20, cuda)
+    expect = ref.router_xattn_pool_ref(q, wq, kt, vt, wo, bo)
+    torch.testing.assert_close(router_xattn_cuda(q, wq, kt, vt, wo, bo), expect,
+                               rtol=1e-5, atol=1e-5)
+    good = router_xattn_mod.plan
+    monkeypatch.setattr(router_xattn_mod, "plan",
+                        lambda *a: good(*a)._replace(smem=232_448 + 1024))
+    before = router_xattn_cuda.launches
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="router_xattn launch failed"):
+            router_xattn_cuda(q, wq, kt, vt, wo, bo)
+    assert router_xattn_cuda.launches == before
+    monkeypatch.setattr(router_xattn_mod, "plan", good)
+    torch.testing.assert_close(router_xattn_cuda(q, wq, kt, vt, wo, bo), expect,
+                               rtol=1e-5, atol=1e-5)
+    assert router_xattn_cuda.launches == before + 1
+
+
+def test_router_xattn_kernel_above_48kb_of_shared_memory(cuda):
+    """d = K = 64 at dq = 5000 stages 256-row chunks: 136 KB of shared memory
+    per block, which the raised cap admits."""
+    assert router_xattn_mod.plan(3, 5000, 64, 64).smem > 48 * 1024
+    q, wq, kt, vt, wo, bo = _inputs(5, 3, 64, 64, cuda, dq=5000)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        torch.testing.assert_close(
+            router_xattn_cuda(q.to(dtype), wq, kt, vt, wo, bo),
+            ref.router_xattn_pool_ref(q.to(dtype), wq, kt, vt, wo, bo), rtol=tol, atol=tol)

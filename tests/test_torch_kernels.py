@@ -18,6 +18,7 @@ from repro.kernels import ref as jax_ref
 from repro_torch import bridge
 from repro_torch.core.predictors import PREDICTORS
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import router_xattn as router_xattn_mod
 from repro_torch.kernels.router_xattn import router_xattn_cuda
 
 
@@ -122,3 +123,52 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(bad):
         q = q.double()
     with pytest.raises((ValueError, TypeError)):
         router_xattn_cuda(q, wq, kt, vt, wo, bo)
+
+
+# Launch plans of the CUDA kernel (pure Python, no card): every shape of the
+# sweeps in chip_smoke.py and tests/test_torch_cuda.py, the serving path's
+# shapes (B 8 per serve, up to 64 per trace batch, 256 timed; dq 768, d 20,
+# K 2) and the seams of the split: dq one below, at and one above a 32-row
+# tile and a rank's slice, B on both sides of the rows per cluster.
+_ROWS = router_xattn_mod.ROWS
+_PLAN_SHAPES = sorted(
+    {(b, 768, d, k) for b in (1, 37, 64, 256, 1000) for k in (2, 5, 11, 64)
+     for d in (4, 20, 64)}
+    | {(19, dq, 20, 5) for dq in (1, 31, 300, 2048)}
+    | {(b, dq, 20, 5) for b in (1, _ROWS - 1, _ROWS, _ROWS + 1)
+       for dq in (1, 7, 31, 32, 33, 95, 96, 97, 767, 768, 769, 2048, 5000)}
+    | {(256, 2048, d, 11) for d in (20, 64)} | {(256, 768, d, k) for d in (20, 64)
+                                                for k in (2, 11, 64)}
+    | {(b, 768, 20, 2) for b in (8, 64, 256)}
+    | {(3, 5000, 64, 64), (8, 768, 20, 5), (1, 1, 1, 1)})
+
+
+@pytest.mark.parametrize("b,dq,d,k", _PLAN_SHAPES)
+def test_router_xattn_plan(b, dq, d, k):
+    pl = router_xattn_mod.plan(b, dq, d, k)
+    assert 1 <= pl.cluster <= 8 and pl.grid % pl.cluster == 0
+    assert pl.threads == 32 * pl.rows <= 1024
+    assert pl.smem <= 232_448
+    assert pl.slice % 32 == 0 and 32 <= pl.chunk <= min(pl.slice, 256)
+    # Cluster c writes query rows [c * rows, (c + 1) * rows): every row of
+    # the output exactly once.
+    written = [r for c in range(pl.grid // pl.cluster)
+               for r in range(c * pl.rows, min(b, (c + 1) * pl.rows))]
+    assert written == list(range(b))
+    assert (pl.grid // pl.cluster - 1) * pl.rows < b
+    # The ranks' slices of dq cover it exactly once, none empty; each is
+    # whole 32-row tiles, so the blocked sum's tiles do not move.
+    rows = [[r for r in range(s * pl.slice, min(dq, (s + 1) * pl.slice))]
+            for s in range(pl.cluster)]
+    assert all(rows) and sum(rows, []) == list(range(dq))
+
+
+def test_router_xattn_plan_at_the_serving_shape():
+    """dq = 768 over eight ranks of 96 rows, 4 query rows per cluster: 16
+    blocks at B 8, 512 at B 256. A query narrower than one tile takes
+    cluster 1."""
+    assert router_xattn_mod.plan(8, 768, 20, 2) == router_xattn_mod.Plan(
+        cluster=8, rows=4, slice=96, chunk=96, grid=16, threads=128, smem=14_264)
+    assert router_xattn_mod.plan(256, 768, 20, 2).grid == 512
+    assert router_xattn_mod.plan(8, 1, 20, 2).cluster == 1
+    assert router_xattn_mod.plan(8, 32, 20, 2).cluster == 1

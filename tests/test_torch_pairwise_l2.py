@@ -18,6 +18,7 @@ from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
 from repro_torch.core.clustering import pairwise_sq_dists
 from repro_torch.kernels import ops
+from repro_torch.kernels import pairwise_l2 as pairwise_l2_mod
 from repro_torch.kernels.pairwise_l2 import pairwise_l2_cuda
 
 
@@ -96,3 +97,60 @@ def test_pairwise_l2_matches_clustering_module():
 def test_pairwise_l2_rejects_mismatched_widths():
     with pytest.raises(RuntimeError):
         ops.pairwise_l2(torch.ones(4, 8), torch.ones(3, 9))
+
+
+# Launch plans of the CUDA kernel (pure Python, no card): every shape of the
+# sweeps in chip_smoke.py and tests/test_torch_cuda.py, the seams of the
+# split (d one below, at and one above a slice of 32 and a rank's share),
+# and the serving path's four call sites with their cluster size and blocks.
+_PATH_PLANS = {(48, 20, 768): (8, 8), (900, 20, 768): (8, 120),
+               (512, 512, 768): (2, 128), (64, 4096, 768): (2, 128)}
+_PLAN_SHAPES = sorted(
+    {(1, 1, 8), (8, 3, 16), (100, 20, 768), (256, 256, 64), (300, 37, 128),
+     (65, 129, 33), (64, 4096, 768), (1000, 1000, 1024), (7, 5, 2049), (130, 70, 256),
+     (1, 1, 1), (4, 3, 8), (64, 64, 768), (64, 64, 1000), (2, 64 * 65536, 1)}
+    | {(n, k, d) for n, k in ((1, 4096), (48, 20))
+       for d in (1, 31, 32, 33, 95, 96, 97, 767, 768, 769, 1000)}
+    | set(_PATH_PLANS))
+
+
+def _written(pl, n, k):
+    """How often the launch writes each output: block (x, y) is rank x % S
+    of the cluster on K tile x // S and N tile y, and rank r writes rows
+    [r * per, (r + 1) * per) of its 64 x 64 tile."""
+    s = pl.cluster
+    per = -(-64 // s)
+    count = np.zeros((n, k), dtype=np.int64)
+    for bx in range(pl.grid[0]):
+        rank, k0 = bx % s, bx // s * 64
+        for by in range(pl.grid[1]):
+            n0 = by * 64 + rank * per
+            count[n0:min(n, n0 + per, by * 64 + 64), k0:min(k, k0 + 64)] += 1
+    return count
+
+
+@pytest.mark.parametrize("n,k,d", _PLAN_SHAPES)
+def test_pairwise_l2_plan(n, k, d):
+    pl = pairwise_l2_mod.plan(n, k, d)
+    slices = -(-d // 32)
+    assert 1 <= pl.cluster <= 8 and pl.cluster <= slices
+    assert pl.grid == (pl.cluster * -(-k // 64), -(-n // 64))
+    assert pl.grid[1] <= 65535 and pl.threads <= 1024 and pl.smem <= 232_448
+    if n * k <= 1 << 22:   # every output written exactly once
+        assert (_written(pl, n, k) == 1).all()
+    # The ranks' slices of d cover it exactly once, none empty.
+    feats = [[f for f in range(s * pl.spr * 32, min(d, (s + 1) * pl.spr * 32))]
+             for s in range(pl.cluster)]
+    assert all(feats) and sum(feats, []) == list(range(d))
+    if (n, k, d) in _PATH_PLANS:
+        assert (pl.cluster, pl.grid[0] * pl.grid[1]) == _PATH_PLANS[(n, k, d)]
+
+
+def test_pairwise_l2_plan_limits():
+    """K walks gridDim.x, cluster by cluster (a C int); N the 65535 tiles
+    of gridDim.y."""
+    assert pairwise_l2_mod.plan(1, 2**31 - 1, 1).grid == (2**25, 1)
+    assert pairwise_l2_mod.plan(65535 * 64, 1, 1).grid == (1, 65535)
+    for n, k in ((65535 * 64 + 1, 1), (1, 2**31), (0, 1), (1, 0)):
+        with pytest.raises(ValueError, match="pairwise_l2 kernel takes"):
+            pairwise_l2_mod.plan(n, k, 1)
