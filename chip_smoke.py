@@ -17,21 +17,35 @@ Phases (any failure raises and exits non-zero before the last line):
      time kernel, plain version and the ``torch.cdist`` yardstick at the
      four shapes the cached serving path gives it, each with its launch's
      cluster size, grid and shared bytes (``[launch]``).
-  5. serve: qwen3-0.6b and granite-3-8b at published width and depth, fp32,
-     on the card, behind a seeded router; ``engine.serve`` on 8 seeded
+  5. train: ``build_engine`` builds qwen3-0.6b and granite-3-8b at published
+     width and depth, fp32, on the card, and trains their router there as the
+     reference does (1200 synthetic RouterBench queries mapped onto the pool,
+     k-means model embeddings, ``attn`` quality and cost predictors for 120
+     epochs with AdamW, the best-validation params kept); wall times, ms per
+     optimizer step and the losses; ``router_xattn`` on the trained params
+     held against the plain predictor over the 240 held-out queries (1e-5).
+  6. serve: on that pool and trained router, ``engine.serve`` on 8 seeded
      requests, then ``generate_member`` on each member.
-  6. breakdown and reference: where a warm serve's time goes; engine scores
+  7. breakdown and reference: where a warm serve's time goes; engine scores
      against the plain predictor; a smoke-size member's logits and tokens
      on the card against the CPU; finite full-size logits.
-  7. trace: on the same pool, a seeded ``neardup`` trace of 192 requests
+  8. trace: on the same pool, a seeded ``neardup`` trace of 192 requests
      through the streaming scheduler with the semantic cache as rung 0 (a
      calibrated radius, cap 256) and a cache-owned drift detector fitted on
      the training split against the router's k-means centroids.
-  8. lookup: a deployment-size cache (cap 4096, at least 512 entries)
+  9. lookup: a deployment-size cache (cap 4096, at least 512 entries)
      answers 64 queries through the kernel; its hits equal a CPU twin's.
+ 10. table2: the paper's Table 2 on pool1 (K = 5) with benchmarks/common.py's
+     defaults (4000 queries, 300 epochs): the attention router and the MLP
+     trained on the card, KNN (k = 20), SVM, LLM-Blender and the oracle, each
+     with AIQ and perf_max over the 25-point lambda grid; the same attention
+     quality predictor trained on the CPU from the same initial params must
+     agree (losses rtol 1e-3, AIQ 5e-3); ``router_xattn`` on the trained
+     params over the 1000 held-out queries (1e-5), timed.
 Each path (serve, trace, lookup) runs with every kernel's launch count set
 to 0 just before it and read just after; a kernel of the path that was not
-launched fails the run. The second-to-last line is a JSON object with the
+launched fails the run. The kernel checks on trained params (train, table2)
+are counted the same way. The second-to-last line is a JSON object with the
 kernels' numbers, the last ``{"ok": true, "device": {...}}``. The kernel
 libraries are built into build/repro_torch/ under the checkout.
 """
@@ -39,6 +53,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -207,20 +222,132 @@ def profile_device(fn, n=1):
     return sum(by_name.values()), by_name
 
 
-def phase_serve(rx, pl2):
-    from repro_torch.common.tree import flatten_with_paths
-    from repro_torch.launch.serve import build_engine, synthetic_requests
+def _timed(module, name, record):
+    """Replace ``module.name`` by a wrapper that appends (seconds, args,
+    result) of each call to ``record``; returns the original."""
+    fn = getattr(module, name)
 
+    def wrapper(*args, **kwargs):
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        record.append((time.perf_counter() - t, args, kwargs, out))
+        return out
+
+    setattr(module, name, wrapper)
+    return fn
+
+
+def step_ms(kind, q, t, m, n=50):
+    """Steady-state host ms per optimizer step of the trainer's own step on
+    one full batch, one ``float(loss)`` each as the training loop does; and
+    the device's busy ms per step from torch.profiler."""
+    from repro_torch.core.predictors import PREDICTORS
+    from repro_torch.training.optim import AdamConfig, adam_init
+    from repro_torch.training.predictor_trainer import make_predictor_step
+
+    params = PREDICTORS[kind].init(torch.Generator(device="cuda").manual_seed(9),
+                                   q.shape[1], t.shape[1], m.shape[1])
+    cfg = AdamConfig(lr=1e-3, weight_decay=1e-5, t_max=10_000)
+    step, state = make_predictor_step(kind, cfg), adam_init(cfg, params)
+    for _ in range(5):
+        loss, params, state = step(params, state, q, m, t)
+        float(loss)
     t0 = time.perf_counter()
-    engine = build_engine(POOL, seed=0, device="cuda")
-    torch.cuda.synchronize()
+    for _ in range(n):
+        loss, params, state = step(params, state, q, m, t)
+        float(loss)
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    box = [params, state]
+
+    def one():
+        loss, box[0], box[1] = step(box[0], box[1], q, m, t)
+        float(loss)
+    busy, _ = profile_device(lambda: [one() for _ in range(20)])
+    return wall_ms, busy / 20
+
+
+def phase_train(rx):
+    """``build_engine`` trains the serving router on the card; then the kernel
+    on the trained quality params against the plain predictor."""
+    from repro_torch.common.tree import flatten_with_paths
+    from repro_torch.core import model_repr
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.training import predictor_trainer
+
+    calls = {"kmeans": [], "model_emb": [], "train": []}
+    patched = [(model_repr, "kmeans", calls["kmeans"]),
+               (serve_mod, "build_model_embeddings", calls["model_emb"]),
+               (predictor_trainer, "train_predictor", calls["train"])]
+    originals = [_timed(mod, name, rec) for mod, name, rec in patched]
+    t0 = time.perf_counter()
+    try:
+        engine = serve_mod.build_engine(POOL, seed=0, device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        for (mod, name, _), fn in zip(patched, originals):
+            setattr(mod, name, fn)
     t_build = time.perf_counter() - t0
     for m in engine.pool:
         n = sum(p.numel() for p in flatten_with_paths(m.params).values())
-        log(f"[serve] {m.name}: {m.cfg.n_layers} layers d_model={m.cfg.d_model} "
+        log(f"[train] {m.name}: {m.cfg.n_layers} layers d_model={m.cfg.d_model} "
             f"{n / 1e9:.3f}B params fp32 on {m.device}")
-    log(f"[serve] pool + router built in {t_build:.2f}s; "
-        f"device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    (t_km, (x, k), _, _), = calls["kmeans"]
+    (t_memb, *_), = calls["model_emb"]
+    log(f"[train] pool + trained router built in {t_build:.2f}s; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    log(f"[train] k-means C={k} of {x.shape[0]} x {x.shape[1]} embeddings {t_km:.3f}s; "
+        f"model embeddings (k-means included) {t_memb:.3f}s")
+    summary = {"build_s": t_build, "kmeans_s": t_km, "model_emb_s": t_memb}
+    for role, (secs, args, kwargs, (params, hist)) in zip(("quality", "cost"), calls["train"]):
+        kind, q_emb, _, _, cfg = args[:5]
+        steps = cfg.epochs * max(1, q_emb.shape[0] // cfg.batch_size)
+        check(all(np.isfinite(hist["train_loss"])) and all(np.isfinite(hist["val_loss"])),
+              f"{role} predictor losses finite")
+        check(all(t.device.type == "cuda" for t in flatten_with_paths(params).values()),
+              f"{role} predictor trained on the card")
+        log(f"[train] {role} predictor {kind}: {cfg.epochs} epochs, {steps} steps of batch "
+            f"{min(cfg.batch_size, q_emb.shape[0])} in {secs:.3f}s ({secs / steps * 1e3:.3f} "
+            f"ms/step, validation every {cfg.eval_every} epochs included); train loss "
+            f"{hist['train_loss'][0]:.6g} -> {hist['train_loss'][-1]:.6g}, best val loss "
+            f"{min(hist['val_loss']):.6g}")
+        summary[role] = {"kind": kind, "seconds": secs, "steps": steps,
+                         "final_train_loss": hist["train_loss"][-1],
+                         "best_val_loss": min(hist["val_loss"])}
+
+    data, quality, _ = serve_mod.synthetic_pool_traffic(engine.pool, seed=0)
+    tr, _, te = data.split(seed=0)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()  # noqa: E731
+    wall, busy = step_ms("attn", f32(data.emb[tr]), f32(quality[tr]),
+                         f32(engine.router.model_emb))
+    log(f"[train] attn optimizer step, batch {len(tr)}: {wall:.4f} ms host wall per step "
+        f"(one float(loss) sync each); device busy {busy:.4f} ms -> idle share "
+        f"{max(0.0, 1 - busy / wall):.3f}")
+    summary["step_ms"], summary["step_device_ms"] = wall, busy
+
+    rx.router_xattn_cuda.launches = 0
+    s_kernel, c_kernel = engine.score_emb(data.emb[te])
+    torch.cuda.synchronize()
+    launches = rx.router_xattn_cuda.launches
+    s_plain, c_plain = engine.router.predict(data.emb[te])
+    e = float(np.abs(s_kernel - s_plain).max())
+    check(launches == 1, f"the trained router's scoring launched router_xattn {launches} times")
+    check(np.allclose(s_kernel, s_plain, rtol=1e-5, atol=1e-5),
+          f"router_xattn on trained params vs plain predictor, max |err| {e:.3g}")
+    check(np.array_equal(c_kernel, c_plain), "cost path identical on both scoring paths")
+    choices = engine.choose(s_kernel, c_kernel)
+    counts = np.bincount(choices, minlength=len(engine.pool))
+    log(f"[train] router_xattn on the trained params, {len(te)} held-out queries "
+        f"(B={len(te)}, K={len(engine.pool)}): max |err| {e:.3g} vs the plain predictor "
+        f"(tol 1e-5), 1 launch; at lambda 1 it routes " + ", ".join(
+            f"{m.name}={int(c)}" for m, c in zip(engine.pool, counts)))
+    summary.update(launches=launches, max_abs_err=e)
+    return engine, summary
+
+
+def phase_serve(engine, rx, pl2):
+    from repro_torch.launch.serve import synthetic_requests
+
     vocab = min(m.cfg.vocab_size for m in engine.pool)
     texts, prompts = synthetic_requests(N_REQUESTS, vocab, seed=0)
 
@@ -443,7 +570,7 @@ def time_pairwise(pl2, ref, label, shape) -> dict:
 
 def phase_trace(engine, rx, pl2) -> dict:
     """The cached streaming path at full width: scheduler, semantic cache
-    (rung 0), cache-owned drift detector, on the pool ``phase_serve`` built."""
+    (rung 0), cache-owned drift detector, on the pool ``phase_train`` built."""
     from repro_torch.data.routerbench import generate
     from repro_torch.launch.serve import (
         build_drift_proto, build_scheduler, fit_router_centroids, make_semcache,
@@ -459,8 +586,8 @@ def phase_trace(engine, rx, pl2) -> dict:
     t0 = time.perf_counter()
     fit_router_centroids(engine.router, train, seed=0, device="cuda")
     log(f"[trace] corpus of 1200 (train {len(tr)}, held-out {len(te)}) in {t_corpus:.2f}s; "
-        f"router centroids {engine.router.centroids.shape} by k-means in "
-        f"{time.perf_counter() - t0:.2f}s")
+        f"router centroids {engine.router.centroids.shape} from training (checked in "
+        f"{time.perf_counter() - t0:.2f}s)")
     vocab = min(m.cfg.vocab_size for m in engine.pool)
     trace = make_trace(TraceConfig(kind="neardup", n_requests=TRACE_REQUESTS, rate=400.0,
                                    seed=0, max_new=4, prompt_len_min=8, prompt_len_max=96,
@@ -628,6 +755,171 @@ def phase_lookup(radius, pl2) -> dict:
     return {"launches": launches, "entries": n, "card_ms": card_ms, "twin_ms": twin_ms}
 
 
+def bench_defaults() -> tuple:
+    """(queries, epochs): the defaults of REPRO_BENCH_QUERIES and
+    REPRO_BENCH_EPOCHS in benchmarks/common.py, read from the file (the
+    benchmark package imports JAX, which the port's machine lacks)."""
+    text = open(os.path.join(ROOT, "benchmarks", "common.py")).read()
+    get = lambda name: int(re.search(  # noqa: E731
+        rf'os\.environ\.get\("{name}", "(\d+)"\)', text).group(1))
+    return get("REPRO_BENCH_QUERIES"), get("REPRO_BENCH_EPOCHS")
+
+
+def _sweep_metrics(s_hat, c_hat, quality, cost):
+    from repro_torch.core import DEFAULT_LAMBDA_GRID, evaluate_sweep, rewards
+
+    choices = np.stack([rewards.route("R2", s_hat, c_hat, lam).numpy()
+                        for lam in DEFAULT_LAMBDA_GRID])
+    return evaluate_sweep(choices, quality, cost, DEFAULT_LAMBDA_GRID)
+
+
+def phase_table2(rx, ref) -> dict:
+    """Paper Table 2 on pool1: trained routers, baselines and the oracle, each
+    with AIQ and perf_max over the lambda grid; the card's attention training
+    against the CPU's from the same initial params; the kernel at K = 5."""
+    import dataclasses
+
+    from repro_torch.core import (
+        DEFAULT_LAMBDA_GRID, aiq, build_model_embeddings, evaluate_sweep, oracle_sweep,
+    )
+    from repro_torch.core.baselines import KNNRouter, SVMRouter, llm_blender_eval
+    from repro_torch.core.predictors import PREDICTORS
+    from repro_torch.core.router import PredictiveRouter
+    from repro_torch.data.routerbench import generate
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import RoutedEngine
+    from repro_torch.training import QUALITY_TRAIN, train_dual_predictors, train_predictor
+
+    n_queries, epochs = bench_defaults()
+    lams = DEFAULT_LAMBDA_GRID
+    t0 = time.perf_counter()
+    data = generate(n_queries, seed=0).pool("pool1")
+    tr, va, te = data.split(seed=0)
+    emb, quality, cost = data.emb, data.quality, data.cost
+    t_corpus = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    memb, _ = build_model_embeddings(emb[tr], quality[tr], seed=0, device="cuda")
+    t_memb = time.perf_counter() - t0
+    log(f"[table2] pool1 {data.model_names}: corpus generate({n_queries}, seed=0) in "
+        f"{t_corpus:.2f}s (train {len(tr)}, val {len(va)}, test {len(te)}); model "
+        f"embeddings {memb.shape} in {t_memb:.3f}s; {epochs} epochs, {len(lams)} lambdas")
+
+    split = dict(q_emb_val=emb[va], quality_val=quality[va], cost_val=cost[va],
+                 epochs=epochs, seed=0, device="cuda")
+    init = PREDICTORS["attn"].init(torch.Generator(device="cuda").manual_seed(0), 768, 5, 20)
+    rows, routers, hists, walls = {}, {}, {}, {}
+    for name, kind, q_init in (("attn", "attn", init), ("mlp", "2fcn", None)):
+        t0 = time.perf_counter()
+        qp, cp, scaler, hist = train_dual_predictors(
+            kind, kind, emb[tr], quality[tr], cost[tr], memb, **split, quality_init=q_init)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        routers[name] = PredictiveRouter(kind, kind, qp, cp, memb, cost_scaler=scaler)
+        hists[name] = hist
+        rows[name] = evaluate_sweep(routers[name].sweep(emb[te], lams), quality[te],
+                                    cost[te], lams)
+    steps = epochs * max(1, len(tr) // QUALITY_TRAIN.batch_size)
+    t0 = time.perf_counter()
+    rows["knn"] = _sweep_metrics(*KNNRouter(emb[tr], quality[tr], cost[tr], k=20,
+                                            device="cuda").predict(emb[te]),
+                                 quality[te], cost[te])
+    walls["knn"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows["svm"] = _sweep_metrics(*SVMRouter.fit(emb[tr], quality[tr], cost[tr],
+                                                device="cuda").predict(emb[te]),
+                                 quality[te], cost[te])
+    walls["svm"] = time.perf_counter() - t0
+    # LLM-Blender queries every member: one operating point, no lambda sweep,
+    # so its AIQ is that point's quality (metrics.aiq of one point).
+    perf, per_query = llm_blender_eval(quality[te], cost[te])
+    rows["blender"] = {"aiq": aiq(np.array([per_query]), np.array([perf])), "perf_max": perf,
+                       "cost_per_query": per_query}
+    rows["oracle"] = evaluate_sweep(oracle_sweep(quality[te], cost[te], lams, "R2"),
+                                    quality[te], cost[te], lams)
+    for name, m in rows.items():
+        check(np.isfinite(m["aiq"]) and 0.0 <= m["perf_max"] <= 1.0, f"{name} metrics")
+    for name in ("attn", "mlp"):
+        h = hists[name]
+        log(f"[table2] {name} ({routers[name].quality_kind}/{routers[name].cost_kind}) "
+            f"trained on the card in {walls[name]:.3f}s: 2 x {steps} steps "
+            f"({walls[name] / (2 * steps) * 1e3:.3f} ms/step, validation included); final "
+            f"train loss quality {h['quality']['train_loss'][-1]:.6g} cost "
+            f"{h['cost']['train_loss'][-1]:.6g}; best val loss quality "
+            f"{min(h['quality']['val_loss']):.6g} cost {min(h['cost']['val_loss']):.6g}")
+    log(f"[table2] knn (k=20) {walls['knn']:.3f}s; svm (5 hinge-loss fits of 200 steps) "
+        f"{walls['svm']:.3f}s; blender queries every member at ${per_query:.6f} per query")
+    for name, m in rows.items():
+        log(f"[table2] pool1 {name:8s} AIQ {m['aiq']:.5f}  perf_max {m['perf_max']:.5f}"
+            + (f"  (one point at ${per_query:.6f} per query)" if name == "blender" else ""))
+    ranked = sorted(("attn", "mlp", "knn", "svm"), key=lambda n: -rows[n]["aiq"])
+    log(f"[table2] routers by AIQ: {' > '.join(ranked)}; the attention router "
+        f"{'leads' if ranked[0] == 'attn' else 'does not lead'}; oracle "
+        f"{rows['oracle']['aiq']:.5f}; blender {perf:.5f} at "
+        f"{per_query / rows['oracle']['avg_costs'].max():.1f}x the oracle's priciest "
+        f"point's cost")
+
+    # The same attention quality predictor on the CPU from the same params.
+    t0 = time.perf_counter()
+    qp_cpu, hist_cpu = train_predictor(
+        "attn", emb[tr], quality[tr], memb,
+        dataclasses.replace(QUALITY_TRAIN, epochs=epochs, seed=0), (emb[va], quality[va]),
+        init_params={k: v.cpu() for k, v in init.items()}, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    card = hists["attn"]["quality"]
+    rel = {key: float(np.max(np.abs(np.subtract(card[key], hist_cpu[key]))
+                             / np.abs(hist_cpu[key]))) for key in ("train_loss", "val_loss")}
+    attn = routers["attn"]
+    cpu_router = PredictiveRouter("attn", "attn", qp_cpu,
+                                  {k: v.cpu() for k, v in attn.cost_params.items()},
+                                  memb, cost_scaler=attn.cost_scaler)
+    aiq_cpu = evaluate_sweep(cpu_router.sweep(emb[te], lams), quality[te], cost[te],
+                             lams)["aiq"]
+    d_aiq = abs(aiq_cpu - rows["attn"]["aiq"])
+    check(rel["train_loss"] <= 1e-3 and rel["val_loss"] <= 1e-3,
+          f"card vs CPU loss histories, max relative gap {rel}")
+    check(d_aiq <= 5e-3, f"card vs CPU attn AIQ {rows['attn']['aiq']:.6f} vs {aiq_cpu:.6f}")
+    log(f"[table2] attn quality predictor on the CPU from the same params: {t_cpu:.2f}s for "
+        f"{steps} steps ({t_cpu / steps * 1e3:.3f} ms/step); loss histories within "
+        f"{rel['train_loss']:.3g} (train) and {rel['val_loss']:.3g} (val) relative of the "
+        f"card's (tol 1e-3); AIQ {aiq_cpu:.6f} vs the card's {rows['attn']['aiq']:.6f} "
+        f"(|diff| {d_aiq:.3g}, tol 5e-3)")
+
+    # The kernel on the trained params, K = 5, over the 1000 held-out queries.
+    held = np.concatenate([va, te])
+    engine = RoutedEngine(router=attn, pool=[], device="cuda")
+    rx.router_xattn_cuda.launches = 0
+    s_kernel, _ = engine.score_emb(emb[held])
+    torch.cuda.synchronize()
+    launches = rx.router_xattn_cuda.launches
+    s_plain, _ = attn.predict(emb[held])
+    e = float(np.abs(s_kernel - s_plain).max())
+    check(launches == 1, f"table2 scoring launched router_xattn {launches} times")
+    check(np.allclose(s_kernel, s_plain, rtol=1e-5, atol=1e-5),
+          f"router_xattn K=5 B={len(held)} on trained params, max |err| {e:.3g}")
+    qp = attn.quality_params
+    kt, vt = ops.pool_projections(qp["wk"], qp["wv"], attn.model_emb_tensor())
+    args = (torch.from_numpy(emb[held].astype(np.float32)).cuda(), qp["wq"], kt, vt,
+            qp["wo"], qp["bo"])
+    b, dq = args[0].shape
+    ms = time_ms(lambda: rx.router_xattn_cuda(*args))
+    plain_ms = time_ms(lambda: ref.router_xattn_pool_ref(*args))
+    _, by_name = profile_device(lambda: rx.router_xattn_cuda(*args), n=50)
+    device_ms = sum(v for name, v in by_name.items() if "router_xattn" in name) or None
+    plain_device_ms, _ = profile_device(lambda: ref.router_xattn_pool_ref(*args), n=50)
+    bound_ms, bound_by = router_xattn_bound(b, 5, 20, dq)
+    pl = rx.plan(b, dq, 20, 5)
+    log(f"[launch] router_xattn B={b} dq={dq} d=20 K=5: cluster {pl.cluster}, grid {pl.grid} "
+        f"blocks of {pl.threads} threads, {pl.smem} bytes shared per block")
+    log(f"[table2] router_xattn K=5 B={b} on trained params: max |err| {e:.3g} (tol 1e-5), "
+        f"1 launch; kernel {ms:.5f} ms/call (device {device_ms} ms), plain {plain_ms:.5f} "
+        f"ms/call (device {plain_device_ms:.5f} ms), bound {bound_ms:.3g} ms ({bound_by})")
+    return {"rows": rows, "launches": launches,
+            "timing": {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "device_ms": device_ms,
+                       "plain_device_ms": plain_device_ms, "max_abs_err": e,
+                       "shape": {"B": b, "K": 5, "d": 20, "dq": dq}}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA GPU",
@@ -660,7 +952,11 @@ def main() -> int:
     log(f"[pairwise_l2] phase wall {time.perf_counter() - t0:.2f}s")
 
     t0 = time.perf_counter()
-    engine, texts, prompts, serve_launches = phase_serve(rx, pl2)
+    engine, train = phase_train(rx)
+    log(f"[train] phase wall {time.perf_counter() - t0:.2f}s")
+
+    t0 = time.perf_counter()
+    engine, texts, prompts, serve_launches = phase_serve(engine, rx, pl2)
     log(f"[serve] phase wall {time.perf_counter() - t0:.2f}s")
 
     t0 = time.perf_counter()
@@ -678,6 +974,10 @@ def main() -> int:
     t0 = time.perf_counter()
     lookup = phase_lookup(trace["radius"], pl2)
     log(f"[lookup] phase wall {time.perf_counter() - t0:.2f}s")
+
+    t0 = time.perf_counter()
+    table2 = phase_table2(rx, ref)
+    log(f"[table2] phase wall {time.perf_counter() - t0:.2f}s")
     log(f"[device] all phases {time.perf_counter() - t_start:.2f}s")
 
     log(smi)
@@ -688,10 +988,14 @@ def main() -> int:
         "replaces": "src/repro/kernels/router_xattn.py:34",
         "launches": serve_launches["router_xattn"],
         "launches_by_path": {"serve": serve_launches["router_xattn"],
-                             "trace": trace["launches"]["router_xattn"]},
+                             "trace": trace["launches"]["router_xattn"],
+                             "train": train["launches"], "table2": table2["launches"]},
+        "max_abs_err_trained": {"train": train["max_abs_err"],
+                                "table2": table2["timing"]["max_abs_err"]},
         "max_abs_err": err["float32"], "max_abs_err_bf16": err["bfloat16"],
         "shape": {"B": N_REQUESTS, "K": len(POOL), "d": 20, "dq": 768},
         **timing, "library_ms": None, "at_B_256": timing_256,
+        "at_K_5_B_1000_trained": table2["timing"],
     }, {
         "name": "pairwise_l2", "route": "cuda",
         "source": "src/repro_torch/csrc/pairwise_l2.cu",

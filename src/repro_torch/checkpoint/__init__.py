@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import DeviceLike, resolve_device
-from repro_torch.common.tree import flatten_with_paths, tree_map
+from repro_torch.common.tree import flatten_with_paths, nest_flat, tree_map
 
 _META_KEY = "__repro_meta__"
 ROUTER_CKPT_KIND = "predictive_router_v1"
@@ -39,18 +39,6 @@ def save_checkpoint(path: str, tree: Any, meta: Optional[Dict] = None) -> None:
     with open(tmp, "wb") as f:
         np.savez(f, **arrays)
     os.replace(tmp, path)
-
-
-def _nest_flat(flat: Dict[str, np.ndarray]) -> Dict:
-    """Rebuild nested dicts from ``a/b/c`` leaf paths; leaves stay numpy."""
-    root: Dict = {}
-    for key, leaf in flat.items():
-        parts = key.split("/")
-        d = root
-        for p in parts[:-1]:
-            d = d.setdefault(p, {})
-        d[parts[-1]] = leaf
-    return root
 
 
 def save_router(path: str, router, pool_names=None) -> None:
@@ -111,13 +99,14 @@ def load_router(path: str, expect_pool_names=None,
             f"router checkpoint was trained for pool {saved_names}, "
             f"not {list(expect_pool_names)} — member columns are "
             "positional and would misroute silently")
-    tree = _nest_flat(flat)
+    tree = nest_flat(flat)   # leaves stay numpy
     scaler = tree.get("cost_scaler")
     if scaler is not None:
         scaler = {"mu": np.asarray(scaler["mu"]),
                   "sd": np.asarray(scaler["sd"])}
+    # np.array, not np.ascontiguousarray, which makes a 0-d leaf 1-d.
     to_device = lambda t: tree_map(  # noqa: E731
-        lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device), t)
+        lambda a: torch.from_numpy(np.array(a)).to(device), t)
     return PredictiveRouter(
         quality_kind=meta["quality_kind"],
         cost_kind=meta["cost_kind"],

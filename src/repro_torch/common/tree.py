@@ -24,10 +24,26 @@ def flatten_with_paths(tree: Any, prefix: str = "") -> Dict[str, Any]:
     return out
 
 
-def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
-    """Apply ``fn`` to every leaf, keeping dict/list/tuple structure."""
+def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` to every leaf, keeping dict/list/tuple structure; with
+    ``rest``, to the leaves of ``tree`` and of each tree of the same
+    structure beside it, as ``jax.tree.map`` does."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def nest_flat(flat: Dict[str, Any]) -> Dict:
+    """Rebuild nested dicts from ``a/b/c`` leaf paths (the inverse of
+    :func:`flatten_with_paths` for trees of dicts)."""
+    root: Dict = {}
+    for key, leaf in flat.items():
+        parts = key.split("/")
+        d = root
+        for p in parts[:-1]:
+            d = d.setdefault(p, {})
+        d[parts[-1]] = leaf
+    return root

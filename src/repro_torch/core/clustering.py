@@ -60,12 +60,19 @@ def lloyd(x: torch.Tensor, centers: torch.Tensor,
 
 
 def kmeans(x: np.ndarray, k: int, *, seed: int = 0, n_iters: int = 50,
-           device: Optional[DeviceLike] = None) -> Tuple[np.ndarray, np.ndarray]:
+           device: Optional[DeviceLike] = None,
+           init: Optional[np.ndarray] = None) -> Tuple[np.ndarray, np.ndarray]:
     """Lloyd's algorithm on ``device`` (the CUDA card unless the caller
-    names another). Returns (centroids (K, d) fp32, assignments (N,))."""
-    xt = torch.tensor(np.asarray(x, np.float32), device=resolve_device(device))
-    centers, assign = lloyd(xt, kmeanspp_init(xt, k, np.random.default_rng(seed)),
-                            n_iters)
+    names another), from ``init`` (K, d) when given, else from a kmeans++
+    start seeded with ``seed``. Returns (centroids (K, d) fp32,
+    assignments (N,))."""
+    device = resolve_device(device)
+    xt = torch.tensor(np.asarray(x, np.float32), device=device)
+    if init is None:
+        start = kmeanspp_init(xt, k, np.random.default_rng(seed))
+    else:
+        start = torch.tensor(np.asarray(init, np.float32), device=device)
+    centers, assign = lloyd(xt, start, n_iters)
     return centers.cpu().numpy(), assign.cpu().numpy()
 
 

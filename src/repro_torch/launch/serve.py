@@ -7,8 +7,13 @@
 
 builds the pool members at their published widths and depths on the CUDA
 card (``--smoke`` builds the reduced configs instead, ``--device cpu``
-runs on the CPU) and a router (``--router`` loads an npz checkpoint saved
-by either package; otherwise a seeded, untrained attention router).
+runs on the CPU) and a router. As the reference's ``build_routed_engine``
+does, the router is trained on the same device: synthetic RouterBench
+traffic mapped onto the pool, k-means model embeddings of the training
+split, then the quality (``--quality-kind``, default ``attn``) and ``attn``
+cost predictors for ``--epochs`` epochs, keeping the best-validation
+params. ``--router`` loads an npz checkpoint saved by either package
+instead and skips training; ``--save-router`` writes the trained one.
 
 Without ``--trace`` it serves one batch of seeded requests through
 :meth:`RoutedEngine.serve`, ``MAX_NEW`` tokens each, at willingness-to-pay
@@ -18,14 +23,14 @@ queue and the micro-batching scheduler, on the deterministic service-time
 model, and prints the telemetry report. ``--semcache`` puts the semantic
 answer cache in front as rung 0, with a radius calibrated on the training
 split (unless ``--cache-radius``) and a cache-owned drift detector fitted
-on the training split against the router's k-means centroids. A seeded
-router gets those centroids from k-means (C = 20) of the training split;
-a checkpoint brings its own.
+on the training split against the router's k-means centroids. A trained
+router carries those centroids; a checkpoint without them gets them from
+k-means (C = 20) of the training split.
 
 Every random path derives from ``--seed``: pool init from torch
-generators on the serving device, the router's init likewise, the model
-embeddings, the corpus, the k-means seeds, the trace and the requests
-from numpy.
+generators on the serving device, the predictors' init likewise, the
+model embeddings, the corpus, the k-means seeds, the batch order, the
+trace and the requests from numpy.
 """
 from __future__ import annotations
 
@@ -36,10 +41,11 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.checkpoint import load_router
+from repro_torch.checkpoint import load_router, save_router
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.clustering import kmeans
+from repro_torch.core.model_repr import N_CLUSTERS, build_model_embeddings
 from repro_torch.core.predictors import PREDICTORS
 from repro_torch.core.router import PredictiveRouter
 from repro_torch.data.featurizer import EMB_DIM
@@ -52,13 +58,10 @@ from repro_torch.serving.scheduler import (
 )
 from repro_torch.serving.semcache import SemanticCache, calibrate_radius
 from repro_torch.serving.traffic import TRACE_KINDS, TraceConfig, make_trace
+from repro_torch.training.predictor_trainer import train_dual_predictors
 
 DEFAULT_POOL = "qwen3-0.6b,granite-3-8b"
 MAX_NEW = 8
-
-# Width of a model embedding: one column per k-means cluster of training
-# prompts (N_CLUSTERS in repro.core.model_repr).
-N_CLUSTERS = 20
 
 _WORDS = ("prove", "integral", "python", "function", "poem", "summarize",
           "history", "translate", "riddle", "matrix", "physics", "recipe",
@@ -89,7 +92,8 @@ def build_pool(names: Sequence[str], seed: int = 0,
 
 def init_router(n_members: int, seed: int = 0,
                 device: Optional[DeviceLike] = None) -> PredictiveRouter:
-    """Seeded untrained router: ``attn`` quality and cost heads, R2 reward."""
+    """Seeded untrained router: ``attn`` quality and cost heads, R2 reward
+    (for tests that need a router without training one)."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     pred = PREDICTORS["attn"]
@@ -102,8 +106,17 @@ def init_router(n_members: int, seed: int = 0,
 
 def build_engine(names: Sequence[str], router_path: Optional[str] = None,
                  seed: int = 0, device: Optional[DeviceLike] = None,
-                 smoke: bool = False) -> RoutedEngine:
-    """Pool + router + engine on one device (the CUDA card by default)."""
+                 smoke: bool = False, epochs: int = 120, n_traffic: int = 1200,
+                 quality_kind: str = "attn") -> RoutedEngine:
+    """Pool + trained router + engine on one device (the CUDA card by
+    default), as the reference's ``build_routed_engine``.
+
+    The router trains on ``n_traffic`` synthetic RouterBench queries mapped
+    onto the pool (75/5/20 split): model embeddings and centroids by
+    k-means of the training split, then ``train_dual_predictors`` of
+    ``quality_kind`` and ``attn`` for ``epochs`` epochs with validation.
+    ``router_path`` loads a checkpoint instead and skips training.
+    """
     device = resolve_device(device)
     pool = build_pool(names, seed=seed, device=device, smoke=smoke)
     if router_path is not None:
@@ -113,7 +126,16 @@ def build_engine(names: Sequence[str], router_path: Optional[str] = None,
             raise ValueError(f"checkpoint pool size {router.n_members} != "
                              f"serving pool size {len(pool)}")
     else:
-        router = init_router(len(pool), seed=seed, device=device)
+        data, quality, cost = synthetic_pool_traffic(pool, n=n_traffic, seed=seed)
+        tr, va, _ = data.split(seed=seed)
+        memb, centers = build_model_embeddings(data.emb[tr], quality[tr],
+                                               seed=seed, device=device)
+        qp, cp, scaler, _ = train_dual_predictors(
+            quality_kind, "attn", data.emb[tr], quality[tr], cost[tr], memb,
+            q_emb_val=data.emb[va], quality_val=quality[va], cost_val=cost[va],
+            epochs=epochs, seed=seed, device=device)
+        router = PredictiveRouter(quality_kind, "attn", qp, cp, memb, reward="R2",
+                                  cost_scaler=scaler, centroids=centers)
     return RoutedEngine(router=router, pool=pool, device=device)
 
 
@@ -151,9 +173,9 @@ def synthetic_pool_traffic(pool, n: int = 1200, seed: int = 0):
 
 def fit_router_centroids(router: PredictiveRouter, train_emb: np.ndarray,
                          seed: int = 0, device: Optional[DeviceLike] = None) -> None:
-    """Give a router without centroids the k-means centroids (C = 20) of
-    the training embeddings, as the reference's trained router carries
-    them. Its model embeddings stay as they are."""
+    """Give a router without centroids (a checkpoint saved without them)
+    the k-means centroids (C = 20) of the training embeddings, as a
+    trained router carries them. Its model embeddings stay as they are."""
     if router.centroids is None:
         router.centroids = kmeans(train_emb, min(N_CLUSTERS, len(train_emb)),
                                   seed=seed, device=device)[0]
@@ -248,7 +270,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--pool", default=DEFAULT_POOL)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--router", default=None, help="npz router checkpoint")
+    ap.add_argument("--router", default=None,
+                    help="npz router checkpoint to load instead of training")
+    ap.add_argument("--epochs", type=int, default=80,
+                    help="router training epochs")
+    ap.add_argument("--quality-kind", default="attn", choices=sorted(PREDICTORS),
+                    help="quality predictor kind (the cost predictor is attn)")
+    ap.add_argument("--save-router", default=None, metavar="PATH",
+                    help="write the router as an npz checkpoint")
     ap.add_argument("--smoke", action="store_true", help="reduced configs")
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     ap.add_argument("--trace", default=None, choices=TRACE_KINDS,
@@ -274,9 +303,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     names = args.pool.split(",")
     t0 = time.perf_counter()
     engine = build_engine(names, router_path=args.router, seed=args.seed,
-                          device=args.device, smoke=args.smoke)
+                          device=args.device, smoke=args.smoke, epochs=args.epochs,
+                          quality_kind=args.quality_kind)
     t_build = time.perf_counter() - t0
     print(f"device: {engine.device}  build: {t_build:.3f}s")
+    if args.save_router is not None:
+        save_router(args.save_router, engine.router, pool_names=names)
+        print(f"router saved to {args.save_router}")
     if args.trace is not None:
         run_trace_mode(engine, args)
         return 0

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -103,6 +103,10 @@ class RoutedEngine:
     lam: float = 1.0
     use_kernel: bool = True
     device: Optional[DeviceLike] = None
+    # Observability hook: called with the new router version after every
+    # successful swap (the scheduler wires it to its tracer).
+    on_swap: Optional[Callable[[int], None]] = dataclasses.field(
+        default=None, repr=False)
     _pool_proj: Optional[Tuple[torch.Tensor, torch.Tensor]] = dataclasses.field(
         default=None, repr=False)
 
@@ -165,6 +169,8 @@ class RoutedEngine:
                 f"live v{self.router.version}")
         self.router = new_router
         self.refresh_pool()
+        if self.on_swap is not None:
+            self.on_swap(new_router.version)
 
     def choose(self, s_hat: np.ndarray, c_hat: np.ndarray,
                lam: Optional[float] = None) -> np.ndarray:

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, and training, on
+the card.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (marker ``cuda``) and
 skips without one: a CUDA kernel has no CPU mode. The file imports no JAX,
@@ -10,11 +11,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.predictors import PREDICTORS
+from repro_torch.core.router import PredictiveRouter
+from repro_torch.data.routerbench import generate
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import pairwise_l2 as pairwise_l2_mod
 from repro_torch.kernels import router_xattn as router_xattn_mod
 from repro_torch.kernels.pairwise_l2 import pairwise_l2_cuda
 from repro_torch.kernels.router_xattn import router_xattn_cuda
+from repro_torch.launch.serve import build_engine
+from repro_torch.serving.engine import RoutedEngine
+from repro_torch.training import TrainConfig, train_dual_predictors, train_predictor
 
 pytestmark = pytest.mark.cuda
 
@@ -288,3 +295,84 @@ def test_router_xattn_kernel_above_48kb_of_shared_memory(cuda):
         torch.testing.assert_close(
             router_xattn_cuda(q.to(dtype), wq, kt, vt, wo, bo),
             ref.router_xattn_pool_ref(q.to(dtype), wq, kt, vt, wo, bo), rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# Training on the card, and the kernel on trained params
+# ---------------------------------------------------------------------------
+
+def _corpus(k):
+    """Embeddings and the first k quality and cost columns of the synthetic
+    corpus (k = 5 is pool1's size, 11 every model), split 75/5/20."""
+    data = generate(400, seed=0)
+    tr, va, te = data.split(seed=0)
+    return data.emb, data.quality[:, :k], data.cost[:, :k], tr, va, te
+
+
+def _trained_router(k, device, epochs=20):
+    emb, quality, cost, tr, va, _ = _corpus(k)
+    memb = np.random.default_rng(k).uniform(size=(k, 20)).astype(np.float32)
+    qp, cp, scaler, _ = train_dual_predictors(
+        "attn", "attn", emb[tr], quality[tr], cost[tr], memb, q_emb_val=emb[va],
+        quality_val=quality[va], cost_val=cost[va], epochs=epochs, seed=0, device=device)
+    return PredictiveRouter("attn", "attn", qp, cp, memb, cost_scaler=scaler)
+
+
+def test_training_steps_on_the_card_equal_the_cpus(cuda):
+    """Same initial params and batches: the card's loss histories stay within
+    rtol 1e-3 of the CPU's (cuBLAS and the CPU sum in other orders)."""
+    emb, quality, _, tr, va, _ = _corpus(5)
+    memb = np.random.default_rng(0).uniform(size=(5, 20)).astype(np.float32)
+    init = PREDICTORS["attn"].init(torch.Generator().manual_seed(0), 768, 5, 20)
+    cfg = TrainConfig(batch_size=64, epochs=6, eval_every=2)
+    runs = {dev: train_predictor("attn", emb[tr], quality[tr], memb, cfg,
+                                 (emb[va], quality[va]), init_params=init, device=dev)
+            for dev in ("cpu", "cuda")}
+    assert all(t.device.type == "cuda" for t in runs["cuda"][0].values())
+    for key in ("train_loss", "val_loss"):
+        np.testing.assert_allclose(runs["cuda"][1][key], runs["cpu"][1][key], rtol=1e-3)
+
+
+def test_train_predictor_without_device_raises_without_cuda(monkeypatch):
+    """Runs without a card too: training has no silent CPU path."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    emb, quality = np.ones((8, 768)), np.ones((8, 2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_predictor("attn", emb, quality, np.ones((2, 20), np.float32), TrainConfig(epochs=1))
+
+
+@pytest.mark.parametrize("k", [2, 5, 11])
+def test_kernel_equals_plain_predictor_on_trained_params(cuda, k):
+    router = _trained_router(k, cuda)
+    emb, *_, te = _corpus(k)
+    engine = RoutedEngine(router=router, pool=[], device=cuda)
+    before = router_xattn_cuda.launches
+    s_kernel, c_kernel = engine.score_emb(emb[te])
+    assert router_xattn_cuda.launches == before + 1
+    s_plain, c_plain = router.predict(emb[te])
+    np.testing.assert_allclose(s_kernel, s_plain, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(c_kernel, c_plain)
+
+
+def test_router_grown_past_64_members_raises_on_the_kernel_path(cuda):
+    """``add_member`` can grow a pool past the kernel's K <= 64; scoring it
+    through the kernel raises and names the limit."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    qp = PREDICTORS["attn"].init(gen, 768, 64, 20)
+    cp = PREDICTORS["attn"].init(gen, 768, 64, 20)
+    memb = np.random.default_rng(0).uniform(size=(64, 20)).astype(np.float32)
+    router = PredictiveRouter("attn", "attn", qp, cp, memb)
+    q = _corpus(2)[0][:8]
+    RoutedEngine(router=router, pool=[], device=cuda).score_emb(q)
+    grown = router.add_member()
+    assert grown.n_members == 65
+    with pytest.raises(ValueError, match="K <= 64"):
+        RoutedEngine(router=grown, pool=[], device=cuda).score_emb(q)
+
+
+def test_build_engine_trains_the_router_on_the_card(cuda):
+    engine = build_engine(["qwen3-0.6b", "granite-3-8b"], smoke=True, device=cuda, epochs=3)
+    assert engine.router.device.type == "cuda"
+    assert engine.router.centroids.shape == (20, 768)
+    s, c = engine.score_texts(["prove the integral converges", "write a short poem"])
+    assert s.shape == c.shape == (2, 2) and np.isfinite(s).all()

@@ -12,13 +12,14 @@ import numpy as np
 import pytest
 from _hypothesis_compat import given, settings, st
 
+from repro.data.routerbench import POOLS as JAX_POOLS
 from repro.data.routerbench import generate as jax_generate
 from repro.data.routerbench import load_csv as jax_load_csv
 from repro.serving.budget import BudgetGovernor as JaxGovernor
 from repro.serving.telemetry import Histogram as JaxHistogram
 from repro.serving.traffic import TraceConfig as JaxTraceConfig
 from repro.serving.traffic import make_trace as jax_make_trace
-from repro_torch.data.routerbench import BENCHMARKS, MODELS, generate, load_csv
+from repro_torch.data.routerbench import BENCHMARKS, MODELS, POOLS, generate, load_csv
 from repro_torch.serving.budget import BudgetGovernor
 from repro_torch.serving.queue import EXPIRED, REJECTED, AdmissionQueue, Request
 from repro_torch.serving.telemetry import Histogram, Telemetry
@@ -40,6 +41,16 @@ def test_generate_is_bit_identical(n, seed):
     for a, b in zip(got.split(seed=seed), want.split(seed=seed)):
         np.testing.assert_array_equal(a, b)
     assert set(got.benchmark) <= set(BENCHMARKS) and got.model_names == MODELS
+
+
+@pytest.mark.parametrize("name", ["pool1", "pool2", "pool3", "pool4"])
+def test_pools_and_subsets_match_reference(name):
+    got, want = generate(60, seed=3), jax_generate(60, seed=3)
+    assert POOLS == JAX_POOLS
+    _assert_data_equal(got.pool(name), want.pool(name))
+    mask = np.arange(60) % 3 == 1
+    _assert_data_equal(got.pool(name).select(mask), want.pool(name).select(mask))
+    assert got.pool(name).model_names == POOLS[name]
 
 
 def test_load_csv_matches_reference(tmp_path):

@@ -2,7 +2,8 @@
 
 ``repro_torch`` must import neither ``jax`` nor anything of ``repro``; the
 check runs in a fresh interpreter, because other test files in the same
-worker import both. Entry points run on CUDA unless told otherwise: with
+worker import both, and walks every module of the package (the training
+and evaluation modules included). Entry points run on CUDA unless told otherwise: with
 no device given and no card present they raise, never quietly use the CPU.
 """
 import json
@@ -15,6 +16,8 @@ import pytest
 import torch
 
 from repro_torch.checkpoint import load_router, save_router
+from repro_torch.core.baselines import KNNRouter, SVMRouter
+from repro_torch.core.model_repr import build_model_embeddings, embed_new_model
 from repro_torch.core.clustering import assign_clusters, kmeans
 from repro_torch.launch.serve import (
     build_drift_proto, build_engine, build_pool, build_scheduler, init_router,
@@ -23,6 +26,7 @@ from repro_torch.launch.serve import (
 from repro_torch.online.drift import DriftDetector
 from repro_torch.serving.engine import RoutedEngine
 from repro_torch.serving.semcache import SemanticCache, calibrate_radius
+from repro_torch.training import train_dual_predictors
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
 
@@ -94,6 +98,20 @@ def test_cache_drift_and_clustering_without_device_raise_without_cuda(no_cuda):
                  lambda: assign_clusters(emb, emb[:2]),
                  lambda: make_semcache(emb, radius=0.5),
                  lambda: build_drift_proto(emb, None)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_training_and_evaluation_without_device_raise_without_cuda(no_cuda):
+    rng = np.random.default_rng(0)
+    emb, quality = rng.standard_normal((16, 8)), rng.uniform(size=(16, 2))
+    memb = np.ones((2, 4), np.float32)
+    for call in (lambda: build_model_embeddings(emb, quality, n_clusters=4),
+                 lambda: embed_new_model(emb[:4], emb, quality[:, 0]),
+                 lambda: train_dual_predictors("attn", "attn", emb, quality, quality,
+                                               memb, epochs=1),
+                 lambda: KNNRouter(emb, quality, quality),
+                 lambda: SVMRouter.fit(emb, quality, quality)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
