@@ -10,44 +10,56 @@ Phases (any failure raises and exits non-zero before the last line):
      spill and shared-memory lines for each kernel instance.
   3. kernel: hold ``router_xattn`` against its plain PyTorch version over
      B x K x d (fp32 within 1e-5, bf16 q within 2e-2) and time both at the
-     serving engine's shapes (B 8 and 256), each with the cluster size,
-     grid and shared bytes of its launch (``[launch]``).
+     serving engine's shapes (K 3 at B 8 and 256), each with the cluster
+     size, grid and shared bytes of its launch (``[launch]``).
   4. pairwise_l2: hold the kernel against its plain version over N x K x d
      (fp32 within 1e-4, bf16 within 5e-2), identical rows exactly 0, and
      time kernel, plain version and the ``torch.cdist`` yardstick at the
      four shapes the cached serving path gives it, each with its launch's
      cluster size, grid and shared bytes (``[launch]``).
-  5. train: ``build_engine`` builds qwen3-0.6b and granite-3-8b at published
-     width and depth, fp32, on the card, and trains their router there as the
-     reference does (1200 synthetic RouterBench queries mapped onto the pool,
-     k-means model embeddings, ``attn`` quality and cost predictors for 120
-     epochs with AdamW, the best-validation params kept); wall times, ms per
-     optimizer step and the losses; ``router_xattn`` on the trained params
-     held against the plain predictor over the 240 held-out queries (1e-5).
+  5. train: ``build_engine`` builds the reference's default pool,
+     qwen3-0.6b, granite-moe-1b-a400m (32 experts, top-8) and granite-3-8b,
+     at published width and depth, fp32, on the card, and trains their
+     router there as the reference does (1200 synthetic RouterBench queries
+     mapped onto the pool, k-means model embeddings, ``attn`` quality and
+     cost predictors for 120 epochs with AdamW, the best-validation params
+     kept); wall times, ms per optimizer step and the losses;
+     ``router_xattn`` on the trained params (K = 3) held against the plain
+     predictor over the 240 held-out queries (1e-5).
   6. serve: on that pool and trained router, ``engine.serve`` on 8 seeded
      requests, then ``generate_member`` on each member.
-  7. breakdown and reference: where a warm serve's time goes; engine scores
-     against the plain predictor; a smoke-size member's logits and tokens
-     on the card against the CPU; finite full-size logits.
-  8. trace: on the same pool, a seeded ``neardup`` trace of 192 requests
+  7. breakdown and reference: where a warm serve's time goes, with prefill
+     and decode step per member and the device's busy time and idle share
+     in each; engine scores against the plain predictor; smoke-size
+     qwen3-0.6b and granite-moe logits and tokens on the card against the
+     CPU; finite full-size logits of every member.
+  8. moe: full-width granite-moe generates the 8 requests through
+     ``generate_member`` with the decode drop log set: every logged count
+     must be 0, one per MoE layer and decode step; prefill and decode step
+     with the device's busy time, the decode step's bytes bound, the real
+     assignments the prefill capacity drops; each request alone must give
+     its tokens in the batch (a part is excused only at a logit or
+     router-probability margin of at most 1e-4); and the trained router's
+     routing split of the 240 held-out queries over the lambda grid.
+  9. trace: on the same pool, a seeded ``neardup`` trace of 192 requests
      through the streaming scheduler with the semantic cache as rung 0 (a
      calibrated radius, cap 256) and a cache-owned drift detector fitted on
      the training split against the router's k-means centroids.
-  9. lookup: a deployment-size cache (cap 4096, at least 512 entries)
+ 10. lookup: a deployment-size cache (cap 4096, at least 512 entries)
      answers 64 queries through the kernel; its hits equal a CPU twin's.
- 10. table2: the paper's Table 2 on pool1 (K = 5) with benchmarks/common.py's
+ 11. table2: the paper's Table 2 on pool1 (K = 5) with benchmarks/common.py's
      defaults (4000 queries, 300 epochs): the attention router and the MLP
      trained on the card, KNN (k = 20), SVM, LLM-Blender and the oracle, each
      with AIQ and perf_max over the 25-point lambda grid; the same attention
      quality predictor trained on the CPU from the same initial params must
      agree (losses rtol 1e-3, AIQ 5e-3); ``router_xattn`` on the trained
      params over the 1000 held-out queries (1e-5), timed.
-Each path (serve, trace, lookup) runs with every kernel's launch count set
-to 0 just before it and read just after; a kernel of the path that was not
-launched fails the run. The kernel checks on trained params (train, table2)
-are counted the same way. The second-to-last line is a JSON object with the
-kernels' numbers, the last ``{"ok": true, "device": {...}}``. The kernel
-libraries are built into build/repro_torch/ under the checkout.
+Each path (serve, moe, trace, lookup) runs with every kernel's launch count
+set to 0 just before it and read just after; a kernel of the path that was
+not launched fails the run. The kernel checks on trained params (train,
+table2) are counted the same way. The second-to-last line is a JSON object
+with the kernels' numbers, the last ``{"ok": true, "device": {...}}``. The
+kernel libraries are built into build/repro_torch/ under the checkout.
 """
 from __future__ import annotations
 
@@ -65,13 +77,14 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-POOL = ["qwen3-0.6b", "granite-3-8b"]
+POOL = ["qwen3-0.6b", "granite-moe-1b-a400m", "granite-3-8b"]
+MOE_MEMBER = "granite-moe-1b-a400m"
 N_REQUESTS = 8
 MAX_NEW = 8
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s off the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
-SWEEP_B, SWEEP_K, SWEEP_D = (1, 37, 64, 256, 1000), (2, 5, 11), (4, 20, 64)
+SWEEP_B, SWEEP_K, SWEEP_D = (1, 37, 64, 256, 1000), (2, 3, 5, 11), (4, 20, 64)
 PL2_SWEEP = ((1, 1, 8), (8, 3, 16), (100, 20, 768), (256, 256, 64), (300, 37, 128),
              (48, 20, 768), (900, 20, 768), (512, 512, 768), (64, 4096, 768),
              (1000, 1000, 1024))
@@ -290,12 +303,17 @@ def phase_train(rx):
     t_build = time.perf_counter() - t0
     for m in engine.pool:
         n = sum(p.numel() for p in flatten_with_paths(m.params).values())
+        experts = (f", {m.cfg.n_experts} experts of width {m.cfg.resolved_d_ff_expert}, "
+                   f"top-{m.cfg.top_k}, {m.cfg.active_param_count() / 1e9:.4f}B active"
+                   if m.cfg.n_experts else "")
         log(f"[train] {m.name}: {m.cfg.n_layers} layers d_model={m.cfg.d_model} "
-            f"{n / 1e9:.3f}B params fp32 on {m.device}")
+            f"{n / 1e9:.4f}B params ({4 * n / 2**30:.2f} GiB) fp32 on {m.device}{experts}; "
+            f"$ {m.cost_rate:.6g} per request")
     (t_km, (x, k), _, _), = calls["kmeans"]
     (t_memb, *_), = calls["model_emb"]
-    log(f"[train] pool + trained router built in {t_build:.2f}s; device memory "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    log(f"[train] pool of {len(engine.pool)} + trained router built in {t_build:.2f}s; "
+        f"device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak")
     log(f"[train] k-means C={k} of {x.shape[0]} x {x.shape[1]} embeddings {t_km:.3f}s; "
         f"model embeddings (k-means included) {t_memb:.3f}s")
     summary = {"build_s": t_build, "kmeans_s": t_km, "model_emb_s": t_memb}
@@ -397,10 +415,44 @@ def _synced(fn):
     return time.perf_counter() - t0, out
 
 
+def member_profile(member, tok, mask, tag) -> dict:
+    """A member's prefill of ``tok`` and its decode steps, on the host clock
+    (ending in a device sync) and under torch.profiler: ms, device busy ms
+    and idle share of each, and the three longest device kernels of a step."""
+    from repro_torch.models import lm
+
+    cfg = member.cfg
+    b, s = tok.shape
+    with torch.inference_mode():
+        caches = lm.init_caches(cfg, b, s + MAX_NEW, "cuda")
+        t_pre, (logits, caches) = _synced(
+            lambda: lm.apply_lm_prefill(cfg, member.params, tok, caches, mask))
+        pre_busy, _ = profile_device(lambda: lm.apply_lm_prefill(
+            cfg, member.params, tok, lm.init_caches(cfg, b, s + MAX_NEW, "cuda"), mask))
+        nxt = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
+        steps = [_synced(lambda i=i: lm.apply_lm_decode(cfg, member.params, nxt,
+                                                        caches, s + i))[0]
+                 for i in range(MAX_NEW - 2)]
+        busy, by_name = profile_device(lambda: lm.apply_lm_decode(
+            cfg, member.params, nxt, caches, s + MAX_NEW - 2))
+    step = float(np.median(steps))
+    out = {"prefill_ms": t_pre * 1e3, "prefill_busy_ms": pre_busy,
+           "prefill_idle": max(0.0, 1 - pre_busy / (t_pre * 1e3)),
+           "decode_step_ms": step * 1e3, "decode_busy_ms": busy,
+           "decode_idle": max(0.0, 1 - busy / (step * 1e3))}
+    log(f"[{tag}] {member.name} B={b} S={s}: prefill {out['prefill_ms']:.2f} ms "
+        f"({b * s / t_pre:.0f} prompt tokens/s; profiled: device busy {pre_busy:.2f} ms -> "
+        f"idle share {out['prefill_idle']:.3f}), decode step median {step * 1e3:.2f} ms "
+        f"({b / step:.0f} tokens/s; profiled: device busy {busy:.2f} ms -> idle share "
+        f"{out['decode_idle']:.3f})")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:3]:
+        log(f"[{tag}]   {ms:8.3f} ms  {name[:100]}")
+    return out
+
+
 def phase_breakdown(engine, texts, prompts):
     """Where a warm serve's time goes: host clock per layer, then the device's
     busy time and idle share from torch.profiler."""
-    from repro_torch.models import lm
     from repro_torch.serving.engine import pad_prompts, prompt_pad_mask
 
     walls = [_synced(lambda: engine.serve(texts, prompts, max_new=MAX_NEW))[0]
@@ -413,26 +465,8 @@ def phase_breakdown(engine, texts, prompts):
         + ", ".join(f"{w * 1e3:.2f}" for w in walls) + "); featurizer (host) "
         f"{t_embed * 1e3:.3f} ms, scoring {t_score * 1e3:.3f} ms, choose {t_choose * 1e3:.3f} ms")
     tok, mask = pad_prompts(prompts).cuda(), prompt_pad_mask(prompts).cuda()
-    b, s = tok.shape
     for member in engine.pool:
-        cfg = member.cfg
-        with torch.inference_mode():
-            caches = lm.init_caches(cfg, b, s + MAX_NEW, "cuda")
-            t_pre, (logits, caches) = _synced(
-                lambda: lm.apply_lm_prefill(cfg, member.params, tok, caches, mask))
-            nxt = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
-            steps = [_synced(lambda i=i: lm.apply_lm_decode(cfg, member.params, nxt,
-                                                            caches, s + i))[0]
-                     for i in range(MAX_NEW - 2)]
-            busy, by_name = profile_device(lambda: lm.apply_lm_decode(
-                cfg, member.params, nxt, caches, s + MAX_NEW - 2))
-        step = float(np.median(steps))
-        log(f"[breakdown] {member.name} B={b} S={s}: prefill {t_pre * 1e3:.2f} ms "
-            f"({b * s / t_pre:.0f} prompt tokens/s), decode step median "
-            f"{step * 1e3:.2f} ms ({b / step:.0f} tokens/s); profiled step: device busy "
-            f"{busy:.2f} ms -> idle share {max(0.0, 1 - busy / (step * 1e3)):.3f}")
-        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:3]:
-            log(f"[breakdown]   {ms:8.3f} ms  {name[:100]}")
+        member_profile(member, tok, mask, "breakdown")
     busy, by_name = profile_device(lambda: engine.serve(texts, prompts, max_new=MAX_NEW))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     log(f"[breakdown] profiled serve: device busy {busy:.2f} ms of a {wall * 1e3:.2f} ms "
@@ -455,25 +489,33 @@ def phase_reference(engine, texts):
     check(np.array_equal(c_kernel, c_plain), "cost path identical on both scoring paths")
     log(f"[reference] engine scores: kernel vs plain predictor max |err| {e:.3g}")
 
-    cfg = get_smoke_config("qwen3-0.6b")
-    params_cpu = lm.init_lm(torch.Generator().manual_seed(5), cfg)
-    params_gpu = tree_map(lambda t: t.cuda(), params_cpu)
-    rng = np.random.default_rng(3)
-    prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32) for n in (5, 17, 9)]
-    tok, mask = pad_prompts(prompts), prompt_pad_mask(prompts)
-    with torch.inference_mode():
-        lg_cpu, _ = lm.apply_lm_prefill(cfg, params_cpu, tok,
-                                        lm.init_caches(cfg, 3, 17, "cpu"), mask)
-        lg_gpu, _ = lm.apply_lm_prefill(cfg, params_gpu, tok.cuda(),
-                                        lm.init_caches(cfg, 3, 17, "cuda"), mask.cuda())
-    e = float((lg_gpu.cpu() - lg_cpu).abs().max())
-    check(torch.allclose(lg_gpu.cpu(), lg_cpu, rtol=1e-4, atol=1e-4),
-          f"smoke qwen3 prefill logits card vs CPU, max |err| {e:.3g}")
-    t_cpu = lm.greedy_generate(cfg, params_cpu, tok, 6, attn_mask=mask)
-    t_gpu = lm.greedy_generate(cfg, params_gpu, tok.cuda(), 6, attn_mask=mask.cuda())
-    check(torch.equal(t_cpu, t_gpu.cpu()), "smoke qwen3 greedy tokens card vs CPU")
-    log(f"[reference] smoke qwen3-0.6b on card vs CPU: logits max |err| {e:.3g} "
-        "(tol 1e-4), greedy tokens equal")
+    for name in ("qwen3-0.6b", MOE_MEMBER):
+        cfg = get_smoke_config(name)
+        params_cpu = lm.init_lm(torch.Generator().manual_seed(5), cfg)
+        params_gpu = tree_map(lambda t: t.cuda(), params_cpu)
+        rng = np.random.default_rng(3)
+        prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32) for n in (5, 17, 9)]
+        tok, mask = pad_prompts(prompts), prompt_pad_mask(prompts)
+        e = 0.0
+        with torch.inference_mode():
+            c_cpu, c_gpu = lm.init_caches(cfg, 3, 20, "cpu"), lm.init_caches(cfg, 3, 20, "cuda")
+            for i in range(3):      # the prefill, then two decode steps
+                if i == 0:
+                    lg_cpu, _ = lm.apply_lm_prefill(cfg, params_cpu, tok, c_cpu, mask)
+                    lg_gpu, _ = lm.apply_lm_prefill(cfg, params_gpu, tok.cuda(), c_gpu,
+                                                    mask.cuda())
+                    nxt = torch.argmax(lg_cpu[:, -1, :cfg.vocab_size], -1)[:, None]
+                else:
+                    lg_cpu, _ = lm.apply_lm_decode(cfg, params_cpu, nxt, c_cpu, 16 + i)
+                    lg_gpu, _ = lm.apply_lm_decode(cfg, params_gpu, nxt.cuda(), c_gpu, 16 + i)
+                e = max(e, float((lg_gpu.cpu() - lg_cpu).abs().max()))
+                check(torch.allclose(lg_gpu.cpu(), lg_cpu, rtol=1e-4, atol=1e-4),
+                      f"smoke {name} logits card vs CPU (step {i}), max |err| {e:.3g}")
+        t_cpu = lm.greedy_generate(cfg, params_cpu, tok, 6, attn_mask=mask)
+        t_gpu = lm.greedy_generate(cfg, params_gpu, tok.cuda(), 6, attn_mask=mask.cuda())
+        check(torch.equal(t_cpu, t_gpu.cpu()), f"smoke {name} greedy tokens card vs CPU")
+        log(f"[reference] smoke {name} on card vs CPU: prefill and 2 decode steps' logits "
+            f"max |err| {e:.3g} (tol 1e-4), greedy tokens equal")
 
     for member in engine.pool:
         p = [np.arange(1, 17, dtype=np.int32), np.arange(3, 11, dtype=np.int32)]
@@ -483,7 +525,195 @@ def phase_reference(engine, texts):
                                         prompt_pad_mask(p).cuda())
         check(tuple(lg.shape) == (2, 1, member.cfg.padded_vocab), f"{member.name} logits shape")
         check(bool(torch.isfinite(lg).all()), f"{member.name} full-size logits finite")
-    log("[reference] full-size prefill logits finite, shape (B, 1, padded_vocab), both members")
+    log(f"[reference] full-size prefill logits finite, shape (B, 1, padded_vocab), all "
+        f"{len(engine.pool)} members")
+
+
+def decode_step_bound(cfg, b, s_kv, experts_read) -> tuple:
+    """Least time on an H100 SXM for one fp32 decode step of ``b`` tokens
+    over ``s_kv`` cached positions: bytes (every weight but the embedding
+    table read once, with ``experts_read`` expert SwiGLUs of the MoE layers in
+    place of all of them; ``b`` table rows; the K/V cache in use; the logits
+    written) over HBM bandwidth vs fp32 operations (2 per active weight and
+    token, 4 per cached position, head dim and query head for the attention)
+    over the CUDA-core peak. Returns (ms, "bytes" | "operations", bytes)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    table = cfg.padded_vocab * d
+    n_moe = sum(1 for spec in cfg.layer_plan() if spec.ffn == "moe")
+    expert = 3 * d * cfg.resolved_d_ff_expert
+    weights = cfg.param_count() - table - (n_moe * cfg.n_experts - experts_read) * expert
+    kv = 2 * cfg.n_layers * b * s_kv * cfg.n_kv_heads * hd
+    n_bytes = 4 * (weights + b * d + kv + b * cfg.padded_vocab)
+    ops = (2 * b * (cfg.active_param_count() - table)
+           + 4 * cfg.n_layers * b * s_kv * cfg.n_heads * hd)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"),
+            n_bytes)
+
+
+def greedy_margins(cfg, params, tok, mask, max_new):
+    """``lm.greedy_generate``'s loop, also keeping each step's gap between
+    the two largest logits: (tokens (B, max_new), gaps (B, max_new)) numpy."""
+    from repro_torch.models import lm
+
+    b, s = tok.shape
+    toks, gaps = [], []
+    with torch.inference_mode():
+        caches = lm.init_caches(cfg, b, s + max_new, "cuda")
+        logits, caches = lm.apply_lm_prefill(cfg, params, tok, caches, attn_mask=mask)
+        for i in range(max_new):
+            if i:
+                logits, caches = lm.apply_lm_decode(cfg, params, toks[-1], caches, s + i - 1)
+            lg = logits[:, -1, :cfg.vocab_size]
+            top2 = torch.topk(lg, 2, dim=-1).values
+            gaps.append(top2[:, 0] - top2[:, 1])
+            toks.append(torch.argmax(lg, dim=-1)[:, None])
+    return (torch.cat(toks, 1).to(torch.int32).cpu().numpy(),
+            torch.stack(gaps, 1).cpu().numpy())
+
+
+def phase_moe(engine, rx, pl2) -> dict:
+    """Full-width granite-moe on the card: no-drop decode, prefill capacity,
+    times and the decode bound, batch invariance, and the routing split."""
+    from repro_torch.core import DEFAULT_LAMBDA_GRID
+    from repro_torch.launch.serve import synthetic_pool_traffic, synthetic_requests
+    from repro_torch.models import lm, moe
+    from repro_torch.serving.engine import pad_prompts, prompt_pad_mask
+
+    names = [m.name for m in engine.pool]
+    mi = names.index(MOE_MEMBER)
+    member = engine.pool[mi]
+    cfg = member.cfg
+    n_moe = sum(1 for spec in cfg.layer_plan() if spec.ffn == "moe")
+    vocab = min(m.cfg.vocab_size for m in engine.pool)
+    texts, prompts = synthetic_requests(N_REQUESTS, vocab, seed=0)
+    data, _, _ = synthetic_pool_traffic(engine.pool, seed=0)
+    _, _, te = data.split(seed=0)
+
+    # The path: generate_member with the drop log set, then the routing split.
+    rx.router_xattn_cuda.launches = 0
+    pl2.pairwise_l2_cuda.launches = 0
+    moe.DECODE_DROP_LOG = []
+    try:
+        t_gen, (outs, costs) = _synced(
+            lambda: engine.generate_member(mi, prompts, max_new=MAX_NEW))
+        drop_log = list(moe.DECODE_DROP_LOG)
+    finally:
+        moe.DECODE_DROP_LOG = None
+    s_hat, c_hat = engine.score_emb(data.emb[te])
+    torch.cuda.synchronize()
+    launches = {"router_xattn": rx.router_xattn_cuda.launches,
+                "pairwise_l2": pl2.pairwise_l2_cuda.launches}
+
+    n_steps = MAX_NEW - 1
+    check(len(drop_log) == n_moe * n_steps,
+          f"{len(drop_log)} decode drop logs, not {n_moe} MoE layers x {n_steps} steps")
+    check(all(v == 0 for v in drop_log), f"decode dropped assignments: {sum(drop_log)}")
+    check(all(len(o) == MAX_NEW and 0 <= int(o.min()) and int(o.max()) < cfg.vocab_size
+              for o in outs), f"{MOE_MEMBER} output lengths and vocab")
+    check(launches["router_xattn"] == 1, f"the routing split launched router_xattn "
+                                         f"{launches['router_xattn']} times, not once")
+    log(f"[moe] {MOE_MEMBER} generate_member: {len(prompts)} requests, prompts "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens, max_new={MAX_NEW}, "
+        f"wall {t_gen:.3f}s, $ {costs.sum():.6g}; decode drop log {len(drop_log)} calls "
+        f"(= {n_moe} MoE layers x {n_steps} steps), all 0")
+
+    # Where the split falls over lambda (scoring only; the launch is counted above).
+    rows = [(lam, np.bincount(engine.choose(s_hat, c_hat, lam), minlength=len(names)))
+            for lam in DEFAULT_LAMBDA_GRID]
+    log(f"[moe] routing split of the {len(te)} held-out queries by the trained router "
+        f"(router_xattn, K={len(names)}, 1 launch), counts {'/'.join(names)} per lambda:")
+    for i in range(0, len(rows), 5):
+        log("[moe]   " + "; ".join(f"{lam:.3g}: " + "/".join(str(int(c)) for c in counts)
+                                   for lam, counts in rows[i:i + 5]))
+    moe_lams = [lam for lam, counts in rows if counts[mi] > 0]
+    log(f"[moe] {MOE_MEMBER} is chosen at {len(moe_lams)} of {len(rows)} lambdas"
+        + (f", from {min(moe_lams):.3g} to {max(moe_lams):.3g}" if moe_lams else ""))
+
+    # Times on the device, off the counted path and with the drop log unset.
+    tok, mask = pad_prompts(prompts).cuda(), prompt_pad_mask(prompts).cuda()
+    b, s = tok.shape
+    prof = member_profile(member, tok, mask, "moe")
+
+    # The prefill's capacity (factor 1.25) and one decode step's chosen experts.
+    drops, chosen = [], []
+    dispatch, router_probs = moe._dispatch_groups, moe._router_probs
+
+    def counting(*args, **kwargs):
+        out = dispatch(*args, **kwargs)
+        drops.append(out[2].sum())
+        return out
+
+    def choosing(p, x):
+        probs = router_probs(p, x)
+        chosen.append(torch.topk(probs, cfg.top_k, dim=-1).indices.unique().numel())
+        return probs
+
+    with torch.inference_mode():
+        caches = lm.init_caches(cfg, b, s + 1, "cuda")
+        moe._dispatch_groups = counting
+        try:
+            logits, caches = lm.apply_lm_prefill(cfg, member.params, tok, caches, mask)
+        finally:
+            moe._dispatch_groups = dispatch
+        nxt = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
+        moe._router_probs = choosing
+        try:
+            lm.apply_lm_decode(cfg, member.params, nxt, caches, s)
+        finally:
+            moe._router_probs = router_probs
+    n_real = int(mask.sum())
+    dropped = int(torch.stack(drops).sum())
+    log(f"[moe] prefill capacity: {dropped} of {n_real * cfg.top_k * n_moe} real (token, "
+        f"expert) assignments dropped over {n_moe} MoE layers ({n_real} real tokens, "
+        f"capacity factor {cfg.capacity_factor}, one group per row)")
+    all_ms, by, all_bytes = decode_step_bound(cfg, b, s + 1, n_moe * cfg.n_experts)
+    read_ms, read_by, read_bytes = decode_step_bound(cfg, b, s + 1, sum(chosen))
+    expert_bytes = 4 * n_moe * cfg.n_experts * 3 * cfg.d_model * cfg.resolved_d_ff_expert
+    log(f"[moe] decode step bound (B={b}, {s + 1} cached positions): all {n_moe} x "
+        f"{cfg.n_experts} experts {expert_bytes / 1e9:.3f} GB, the step {all_bytes / 1e9:.3f} GB "
+        f"-> {all_ms:.4f} ms ({by}); the {sum(chosen)} experts this step's tokens chose "
+        f"({sum(chosen) / n_moe:.2f} per layer): {read_bytes / 1e9:.3f} GB -> {read_ms:.4f} ms "
+        f"({read_by}); measured step {prof['decode_step_ms']:.2f} ms, device busy "
+        f"{prof['decode_busy_ms']:.2f} ms (bound / busy {read_ms / prof['decode_busy_ms']:.3f})")
+
+    # Each request alone against the same request in the padded batch.
+    batch_toks, batch_gaps = greedy_margins(cfg, member.params, tok, mask, MAX_NEW)
+    check(np.array_equal(batch_toks, np.stack(outs)),
+          "greedy_margins reproduces generate_member's tokens")
+    parts = []
+    for i, p in enumerate(prompts):
+        margins = []
+        moe._router_probs = lambda params, x: _keep_router_gap(router_probs(params, x),
+                                                               cfg.top_k, margins)
+        try:
+            alone, alone_gaps = greedy_margins(cfg, member.params, pad_prompts([p]).cuda(),
+                                               prompt_pad_mask([p]).cuda(), MAX_NEW)
+        finally:
+            moe._router_probs = router_probs
+        if np.array_equal(alone[0], batch_toks[i]):
+            continue
+        j = int(np.flatnonzero(alone[0] != batch_toks[i])[0])
+        logit_gap = float(min(alone_gaps[0, j], batch_gaps[i, j]))
+        router_gap = float(torch.stack(margins[: (j + 1) * n_moe]).min())
+        parts.append(i)
+        log(f"[moe] request {i} alone parts from the batch at token {j}: logit margin "
+            f"{logit_gap:.3g}, router-probability margin {router_gap:.3g}")
+        check(min(logit_gap, router_gap) <= 1e-4,
+              f"request {i} alone parts from the batch at token {j} with margins "
+              f"{logit_gap:.3g} (logits) and {router_gap:.3g} (router) above 1e-4")
+    log(f"[moe] each request alone vs in the padded batch: "
+        f"{len(prompts) - len(parts)} of {len(prompts)} equal"
+        + (f"; parts at near ties: requests {parts}" if parts else ""))
+    return {"launches": launches}
+
+
+def _keep_router_gap(probs, k, margins):
+    """Append the smallest gap between the k-th and (k+1)-th router
+    probability over ``probs``'s tokens; return ``probs``."""
+    top = torch.topk(probs, k + 1, dim=-1).values
+    margins.append((top[..., k - 1] - top[..., k]).min())
+    return probs
 
 
 def pairwise_l2_bound(n, k, d) -> tuple:
@@ -968,6 +1198,10 @@ def main() -> int:
     log(f"[reference] phase wall {time.perf_counter() - t0:.2f}s")
 
     t0 = time.perf_counter()
+    moe_run = phase_moe(engine, rx, pl2)
+    log(f"[moe] phase wall {time.perf_counter() - t0:.2f}s")
+
+    t0 = time.perf_counter()
     trace = phase_trace(engine, rx, pl2)
     log(f"[trace] phase wall {time.perf_counter() - t0:.2f}s")
 
@@ -988,6 +1222,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/router_xattn.py:34",
         "launches": serve_launches["router_xattn"],
         "launches_by_path": {"serve": serve_launches["router_xattn"],
+                             "moe": moe_run["launches"]["router_xattn"],
                              "trace": trace["launches"]["router_xattn"],
                              "train": train["launches"], "table2": table2["launches"]},
         "max_abs_err_trained": {"train": train["max_abs_err"],
@@ -1002,6 +1237,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/pairwise_l2.py:19",
         "launches": trace["launches"]["pairwise_l2"],
         "launches_by_path": {"serve": serve_launches["pairwise_l2"],
+                             "moe": moe_run["launches"]["pairwise_l2"],
                              "trace": trace["launches"]["pairwise_l2"],
                              "lookup": lookup["launches"]},
         "max_abs_err": pl2_err["float32"], "max_abs_err_bf16": pl2_err["bfloat16"],

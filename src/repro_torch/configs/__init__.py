@@ -1,8 +1,9 @@
 """Architecture registry of the port.
 
 ``get_config(name)`` returns the full published config; ``get_smoke_config``
-the reduced same-family variant the CPU tests use. Only the dense
-attention members are ported so far; the reference's other eight
+the reduced same-family variant the CPU tests use. Ported so far: the
+reference's default serve pool, two dense attention members and the
+mixture-of-experts granite-moe-1b-a400m. The reference's other seven
 architectures wait in ROADMAP.md's Queue 1 (item 6) and raise
 ``NotImplementedError`` here.
 """
@@ -13,10 +14,11 @@ from typing import Dict, List
 
 from repro_torch.configs.base import ArchConfig
 
-ARCH_IDS: List[str] = ["qwen3-0.6b", "granite-3-8b"]
+ARCH_IDS: List[str] = ["qwen3-0.6b", "granite-moe-1b-a400m", "granite-3-8b"]
 
 _MODULES: Dict[str, str] = {
     "qwen3-0.6b": "qwen3_0_6b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "granite-3-8b": "granite_3_8b",
 }
 

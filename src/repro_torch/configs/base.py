@@ -8,7 +8,8 @@ port runs the plan as a plain loop over layers.
 :meth:`ArchConfig.param_count` counts as the reference does: the serving
 engine's $ cost rates derive from it, so both packages must price every
 member the same. Only the fields the dense attention members use are
-here; the MoE, SSM, xLSTM and modality fields come with their mixers.
+here, with the MoE fields of the FFN family ported so far; the SSM, xLSTM
+and modality fields come with their mixers.
 """
 from __future__ import annotations
 
@@ -69,6 +70,14 @@ class ArchConfig:
     rope_theta: float = 10000.0
     attn_logit_softcap: float = 0.0
 
+    # MoE options.
+    n_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0               # 0 -> d_ff
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+
     # Layer plan.
     pattern: Tuple[LayerSpec, ...] = (LayerSpec(),)
     n_repeats: int = 1
@@ -100,16 +109,23 @@ class ArchConfig:
         """The full, flat sequence of layer specs (pattern*n + remainder)."""
         return tuple(self.pattern) * self.n_repeats + tuple(self.remainder)
 
+    def has_ffn(self, kind: str) -> bool:
+        return any(s.ffn == kind for s in self.layer_plan())
+
+    @property
+    def resolved_d_ff_expert(self) -> int:
+        return self.d_ff_expert or self.d_ff
+
     # ---- parameter count (for the cost model) -------------------------------
 
     def param_count(self) -> int:
-        """Analytic parameter count of the full model (attention + MLP plans;
-        the reference's other mixer and FFN families are not ported yet)."""
+        """Analytic parameter count of the full model (attention mixers with
+        an MLP or MoE FFN; the reference's other mixers are not ported yet)."""
         d, hd = self.d_model, self.resolved_head_dim
         total = self.padded_vocab * d          # embedding table
         total += self.padded_vocab * d         # separate lm head
         for spec in self.layer_plan():
-            if spec.mixer != ATTN or spec.ffn != MLP:
+            if spec.mixer != ATTN or spec.ffn not in (MLP, MOE):
                 raise NotImplementedError(
                     f"{self.name}: {spec.mixer}+{spec.ffn} blocks are not ported "
                     "yet (ROADMAP.md Queue 1, item 6)")
@@ -119,9 +135,20 @@ class ArchConfig:
             total += self.n_heads * hd * d     # o
             if self.qkv_bias:
                 total += (self.n_heads + 2 * self.n_kv_heads) * hd
-            total += 3 * d * self.d_ff         # gate, up, down (SwiGLU)
+            if spec.ffn == MLP and self.d_ff:
+                total += 3 * d * self.d_ff     # gate, up, down (SwiGLU)
+            elif spec.ffn == MOE:
+                e, fe = self.n_experts, self.resolved_d_ff_expert
+                total += d * e                 # router
+                total += e * 3 * d * fe        # experts
+                total += self.n_shared_experts * 3 * d * fe
         return int(total)
 
     def active_param_count(self) -> int:
-        """Parameters touched per token: all of them for a dense model."""
-        return self.param_count()
+        """Parameters touched per token: an MoE layer touches its top-k
+        experts, not all E."""
+        total = self.param_count()
+        n_moe = sum(1 for s in self.layer_plan() if s.ffn == MOE)
+        total -= n_moe * (self.n_experts - self.top_k) * 3 * self.d_model \
+            * self.resolved_d_ff_expert
+        return int(total)

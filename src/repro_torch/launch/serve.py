@@ -1,7 +1,7 @@
 """Routed serving on the port: one batch, or an open-loop trace.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        --pool qwen3-0.6b,granite-3-8b --requests 8
+        --pool qwen3-0.6b,granite-moe-1b-a400m,granite-3-8b --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --trace neardup --semcache --requests 200
 
@@ -60,7 +60,9 @@ from repro_torch.serving.semcache import SemanticCache, calibrate_radius
 from repro_torch.serving.traffic import TRACE_KINDS, TraceConfig, make_trace
 from repro_torch.training.predictor_trainer import train_dual_predictors
 
-DEFAULT_POOL = "qwen3-0.6b,granite-3-8b"
+# The reference's default serve pool, in its order: two dense members and
+# the mixture-of-experts granite-moe, the cheapest per token.
+DEFAULT_POOL = "qwen3-0.6b,granite-moe-1b-a400m,granite-3-8b"
 MAX_NEW = 8
 
 _WORDS = ("prove", "integral", "python", "function", "poem", "summarize",

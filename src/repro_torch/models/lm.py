@@ -1,6 +1,8 @@
-"""Decoder LM over a layer plan of attention + SwiGLU MLP blocks.
+"""Decoder LM over a layer plan of attention blocks with a SwiGLU MLP or an
+MoE FFN.
 
-The port of ``repro.models.lm`` for the dense pool members. The reference
+The port of ``repro.models.lm`` for the reference's default serve pool
+(two dense members and the mixture-of-experts granite-moe). The reference
 stacks the repeated ``pattern``'s parameters on a leading ``n_repeats``
 axis and scans over it; here the plan is a plain loop over
 ``params["layers"]``, one parameter dict per layer in
@@ -18,8 +20,9 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ATTN, MLP, ArchConfig, LayerSpec
+from repro_torch.configs.base import ATTN, MLP, MOE, ArchConfig, LayerSpec
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     apply_mlp, apply_rmsnorm, embed_tokens, init_embedding, init_mlp,
     init_rmsnorm, lm_logits,
@@ -27,10 +30,10 @@ from repro_torch.models.layers import (
 
 
 def _check_block(spec: LayerSpec) -> None:
-    if spec.mixer != ATTN or spec.ffn != MLP:
+    if spec.mixer != ATTN or spec.ffn not in (MLP, MOE):
         raise NotImplementedError(
             f"block {spec.mixer}+{spec.ffn} is not ported yet; the port runs "
-            "attention + MLP plans (ROADMAP.md Queue 1, item 6)")
+            "attention blocks with an MLP or MoE FFN (ROADMAP.md Queue 1, item 6)")
 
 
 # ---------------------------------------------------------------------------
@@ -43,12 +46,27 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec) -> Dict:
         "norm1": init_rmsnorm(cfg.d_model, gen.device),
         "mixer": attn_mod.init_attention(gen, cfg, spec),
         "norm2": init_rmsnorm(cfg.d_model, gen.device),
-        "ffn": init_mlp(gen, cfg.d_model, cfg.d_ff),
+        "ffn": (moe_mod.init_moe(gen, cfg) if spec.ffn == MOE
+                else init_mlp(gen, cfg.d_model, cfg.d_ff)),
     }
 
 
-def _apply_ffn(cfg: ArchConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
-    return x + apply_mlp(p["ffn"], apply_rmsnorm(p["norm2"], x, cfg.norm_eps))
+def _apply_ffn_prefill(cfg: ArchConfig, spec: LayerSpec, p: Dict, x: torch.Tensor,
+                       mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Prefill takes the reference's train-path FFN: capacity-grouped MoE
+    with pads left out of capacity (``mask``); the aux loss is dropped."""
+    h = apply_rmsnorm(p["norm2"], x, cfg.norm_eps)
+    if spec.ffn == MLP:
+        return x + apply_mlp(p["ffn"], h)
+    return x + moe_mod.apply_moe_train(cfg, p["ffn"], h, mask=mask)[0]
+
+
+def _apply_ffn_decode(cfg: ArchConfig, spec: LayerSpec, p: Dict,
+                      x: torch.Tensor) -> torch.Tensor:
+    h = apply_rmsnorm(p["norm2"], x, cfg.norm_eps)
+    if spec.ffn == MLP:
+        return x + apply_mlp(p["ffn"], h)
+    return x + moe_mod.apply_moe_decode(cfg, p["ffn"], h)
 
 
 def apply_block_prefill(cfg, spec, p, x, positions, cache, attn_mask=None):
@@ -61,13 +79,13 @@ def apply_block_prefill(cfg, spec, p, x, positions, cache, attn_mask=None):
     y, cache = attn_mod.self_attention_prefill(cfg, spec, p["mixer"], h,
                                                positions, cache,
                                                kv_valid=attn_mask)
-    return _apply_ffn(cfg, p, x + y), cache
+    return _apply_ffn_prefill(cfg, spec, p, x + y, attn_mask), cache
 
 
 def apply_block_decode(cfg, spec, p, x, pos: int, cache):
     h = apply_rmsnorm(p["norm1"], x, cfg.norm_eps)
     y, cache = attn_mod.self_attention_decode(cfg, spec, p["mixer"], h, cache, pos)
-    return _apply_ffn(cfg, p, x + y), cache
+    return _apply_ffn_decode(cfg, spec, p, x + y), cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels against their plain versions, and training, on
-the card.
+"""The port's CUDA kernels against their plain versions, training, and the
+mixture-of-experts member, on the card.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (marker ``cuda``) and
 skips without one: a CUDA kernel has no CPU mode. The file imports no JAX,
@@ -19,8 +19,11 @@ from repro_torch.kernels import pairwise_l2 as pairwise_l2_mod
 from repro_torch.kernels import router_xattn as router_xattn_mod
 from repro_torch.kernels.pairwise_l2 import pairwise_l2_cuda
 from repro_torch.kernels.router_xattn import router_xattn_cuda
-from repro_torch.launch.serve import build_engine
-from repro_torch.serving.engine import RoutedEngine
+from repro_torch.common.tree import tree_map
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch.serve import DEFAULT_POOL, build_engine, synthetic_requests
+from repro_torch.models import lm, moe
+from repro_torch.serving.engine import RoutedEngine, pad_prompts, prompt_pad_mask
 from repro_torch.training import TrainConfig, train_dual_predictors, train_predictor
 
 pytestmark = pytest.mark.cuda
@@ -51,7 +54,7 @@ def _inputs(seed, b, k, d, device, dq=768, dm=20):
 
 
 @pytest.mark.parametrize("b", [1, 37, 64, 256, 1000])
-@pytest.mark.parametrize("k", [2, 5, 11, 64])
+@pytest.mark.parametrize("k", [2, 3, 5, 11, 64])
 @pytest.mark.parametrize("d", [4, 20, 64])
 def test_router_xattn_kernel_matches_plain(cuda, b, k, d):
     q, wq, kt, vt, wo, bo = _inputs(b + 7 * k + d, b, k, d, cuda)
@@ -341,7 +344,7 @@ def test_train_predictor_without_device_raises_without_cuda(monkeypatch):
         train_predictor("attn", emb, quality, np.ones((2, 20), np.float32), TrainConfig(epochs=1))
 
 
-@pytest.mark.parametrize("k", [2, 5, 11])
+@pytest.mark.parametrize("k", [2, 3, 5, 11])
 def test_kernel_equals_plain_predictor_on_trained_params(cuda, k):
     router = _trained_router(k, cuda)
     emb, *_, te = _corpus(k)
@@ -376,3 +379,51 @@ def test_build_engine_trains_the_router_on_the_card(cuda):
     assert engine.router.centroids.shape == (20, 768)
     s, c = engine.score_texts(["prove the integral converges", "write a short poem"])
     assert s.shape == c.shape == (2, 2) and np.isfinite(s).all()
+
+
+# ---------------------------------------------------------------------------
+# The mixture-of-experts member on the card
+# ---------------------------------------------------------------------------
+
+def test_moe_member_on_the_card_equals_the_cpu(cuda, monkeypatch):
+    """Smoke granite-moe: prefill and decode logits on the card within 1e-4
+    of the CPU's, greedy tokens equal, and the decode path logs one drop
+    count per MoE layer and step, every one 0."""
+    cfg = get_smoke_config("granite-moe-1b-a400m")
+    params = lm.init_lm(torch.Generator().manual_seed(5), cfg)
+    params_gpu = tree_map(lambda t: t.to(cuda), params)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32) for n in (5, 17, 9)]
+    tok, mask = pad_prompts(prompts), prompt_pad_mask(prompts)
+    with torch.inference_mode():
+        caches = {d: lm.init_caches(cfg, 3, 20, d) for d in ("cpu", cuda)}
+        lg_cpu, _ = lm.apply_lm_prefill(cfg, params, tok, caches["cpu"], mask)
+        lg_gpu, _ = lm.apply_lm_prefill(cfg, params_gpu, tok.to(cuda), caches[cuda],
+                                        mask.to(cuda))
+        torch.testing.assert_close(lg_gpu.cpu(), lg_cpu, rtol=1e-4, atol=1e-4)
+        nxt = torch.argmax(lg_cpu[:, -1, :cfg.vocab_size], -1)[:, None].to(torch.int32)
+        for i in range(2):
+            lg_cpu, _ = lm.apply_lm_decode(cfg, params, nxt, caches["cpu"], 17 + i)
+            lg_gpu, _ = lm.apply_lm_decode(cfg, params_gpu, nxt.to(cuda), caches[cuda], 17 + i)
+            torch.testing.assert_close(lg_gpu.cpu(), lg_cpu, rtol=1e-4, atol=1e-4)
+    monkeypatch.setattr(moe, "DECODE_DROP_LOG", [])
+    t_gpu = lm.greedy_generate(cfg, params_gpu, tok.to(cuda), 6, attn_mask=mask.to(cuda))
+    assert moe.DECODE_DROP_LOG == [0] * (cfg.n_layers * 5)
+    t_cpu = lm.greedy_generate(cfg, params, tok, 6, attn_mask=mask)
+    assert torch.equal(t_gpu.cpu(), t_cpu)
+
+
+def test_build_engine_serves_the_default_pool_on_the_card(cuda):
+    """The three-member default pool, smoke size: the router trains for
+    K = 3 on the card, scores through the kernel, and granite-moe generates."""
+    names = DEFAULT_POOL.split(",")
+    engine = build_engine(names, smoke=True, device=cuda, epochs=3)
+    texts, prompts = synthetic_requests(6, 512, seed=1, min_len=3, max_len=20)
+    before = router_xattn_cuda.launches
+    res = engine.serve(texts, prompts, max_new=4)
+    assert router_xattn_cuda.launches == before + 1
+    assert engine.router.n_members == 3 and len(res["per_member_counts"]) == 3
+    mi = names.index("granite-moe-1b-a400m")
+    outs, costs = engine.generate_member(mi, prompts, max_new=4)
+    assert all(len(o) == 4 and 0 <= o.min() and o.max() < 512 for o in outs)
+    assert np.all(costs > 0)

@@ -3,8 +3,12 @@
 Params come from ``repro.models.lm.init_lm`` and cross through
 ``repro_torch.bridge``; inputs are numpy, seeded. Logits agree within
 rtol/atol 1e-4 in fp32 (the two frameworks sum matmuls in different
-orders); greedy tokens agree exactly.
+orders); greedy tokens agree exactly. granite-moe-1b-a400m runs the MoE
+FFN (capacity-dispatched prefill, no-drop decode): its logits hold the
+same 1e-4, and its tokens are equal.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +30,7 @@ from repro_torch.models import layers
 from repro_torch.models import lm
 from repro_torch.serving.engine import pad_prompts, prompt_pad_mask
 
-NAMES = ["qwen3-0.6b", "granite-3-8b"]
+NAMES = ["qwen3-0.6b", "granite-moe-1b-a400m", "granite-3-8b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -104,6 +108,14 @@ def test_bridge_keeps_every_reference_weight(member):
         np.testing.assert_array_equal(layer["mixer"]["wq"].numpy(), ref_w)
         np.testing.assert_array_equal(layer["ffn"]["w_down"].numpy(),
                                       np_params["pattern"][0]["ffn"]["w_down"][r])
+        # Every leaf of the repeat, the MoE router (d, E) and experts
+        # (E, d, fe) / (E, fe, d) included.
+        mine = flatten_with_paths(layer)
+        ref = flatten_with_paths(jax.tree.map(lambda a, r=r: a[r],
+                                              np_params["pattern"][0]))
+        assert mine.keys() == ref.keys()
+        for path, leaf in ref.items():
+            np.testing.assert_array_equal(mine[path].numpy(), leaf)
     np.testing.assert_array_equal(tparams["embedding"]["head"].numpy(),
                                   np_params["embedding"]["head"])
 
@@ -170,5 +182,10 @@ def test_unported_options_raise():
         get_config("gemma3-27b")
     with pytest.raises(NotImplementedError, match="sliding-window"):
         attn_mod.init_kv_cache(cfg, LayerSpec(mixer=ATTN, window=8), 1, 4, "cpu")
-    with pytest.raises(NotImplementedError, match="mamba"):
-        lm.init_block(torch.Generator(), cfg, LayerSpec(mixer="mamba"))
+    for mixer in ("mamba", "mlstm", "slstm"):
+        for ffn in ("mlp", "moe"):
+            with pytest.raises(NotImplementedError, match=f"{mixer}.*item 6"):
+                lm.init_block(torch.Generator(), cfg, LayerSpec(mixer=mixer, ffn=ffn))
+            with pytest.raises(NotImplementedError, match="item 6"):
+                dataclasses.replace(cfg, pattern=(LayerSpec(mixer=mixer, ffn=ffn),),
+                                    n_layers=2).param_count()

@@ -5,7 +5,9 @@ a float64 cost scaler and saves the router; the port loads that file with
 its own ``load_router`` and carries the pool's weights through
 ``repro_torch.bridge``. Both then serve the same texts and prompts (the
 reference through its Pallas kernel in interpret mode) and must agree on
-choices, tokens, per-member counts, and total $ to 1e-12 relative.
+choices, tokens, per-member counts, and total $ to 1e-12 relative. The
+pool is the reference's default three members, the mixture-of-experts
+granite-moe-1b-a400m among them, so the kernel scores K = 3.
 """
 import dataclasses
 
@@ -20,38 +22,72 @@ from repro.core.predictors import PREDICTORS as JAX_PREDICTORS
 from repro.core.router import PredictiveRouter as JaxRouter
 from repro.data.featurizer import embed_texts as jax_embed_texts
 from repro.launch.serve import build_pool as jax_build_pool
+from repro.launch.serve import make_parser as jax_make_parser
+from repro.launch.serve import pool_quality_columns as jax_pool_quality_columns
 from repro.serving.engine import RoutedEngine as JaxEngine
+from repro.serving.engine import arch_cost_per_token as jax_arch_cost_per_token
 from repro.serving.engine import arch_cost_rate as jax_arch_cost_rate
 from repro_torch import bridge
 from repro_torch.checkpoint import load_router, save_router
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.featurizer import embed_texts
-from repro_torch.launch.serve import init_router, synthetic_requests
-from repro_torch.serving.engine import PoolMember, RoutedEngine, arch_cost_rate
+from repro_torch.data.routerbench import generate
+from repro_torch.launch.serve import (
+    DEFAULT_POOL, build_engine, init_router, pool_quality_columns, synthetic_requests,
+)
+from repro_torch.serving.engine import (
+    PoolMember, RoutedEngine, arch_cost_per_token, arch_cost_rate,
+)
 
-NAMES = ["qwen3-0.6b", "granite-3-8b"]
-SCALER = {"mu": np.array([0.02, 0.3], np.float64),
-          "sd": np.array([0.05, 0.2], np.float64)}
+NAMES = ["qwen3-0.6b", "granite-moe-1b-a400m", "granite-3-8b"]
+K = len(NAMES)
+SCALER = {"mu": np.array([0.02, 0.1, 0.3], np.float64),
+          "sd": np.array([0.05, 0.1, 0.2], np.float64)}
+
+
+def _balancing_shift(s, c):
+    """Quality-bias shifts (0, d1, d2) under which the R2 argmax at lambda 1
+    picks every member for part of the batch, with the widest gap between
+    each text's best and second-best reward among such shifts."""
+    e = np.exp(-c.astype(np.float32)).astype(np.float64)
+    grids = []
+    for m in (1, 2):
+        flip = (s[:, 0] * e[:, 0] - s[:, m] * e[:, m]) / e[:, m]
+        grids.append(np.linspace(flip.min() - 0.1, flip.max() + 0.1, 161))
+    best, best_key = None, None
+    for d1 in grids[0]:
+        for d2 in grids[1]:
+            r = np.sort((s + np.array([0.0, d1, d2])) * e, axis=1)
+            choice = np.argmax((s + np.array([0.0, d1, d2])) * e, axis=1)
+            counts = np.bincount(choice, minlength=K)
+            key = (counts.min(), (r[:, -1] - r[:, -2]).min())
+            if counts.min() > 0 and (best_key is None or key > best_key):
+                best, best_key = np.array([0.0, d1, d2]), key
+    assert best is not None, "no bias shift splits the batch over every member"
+    return best
 
 
 def _jax_router(balance_texts=None):
-    qp = JAX_PREDICTORS["attn"].init(jax.random.key(1), 768, 2, 20)
-    cp = JAX_PREDICTORS["attn"].init(jax.random.key(2), 768, 2, 20)
-    memb = np.random.default_rng(11).uniform(size=(2, 20)).astype(np.float32)
+    qp = JAX_PREDICTORS["attn"].init(jax.random.key(1), 768, K, 20)
+    cp = JAX_PREDICTORS["attn"].init(jax.random.key(2), 768, K, 20)
+    memb = np.random.default_rng(11).uniform(size=(K, 20)).astype(np.float32)
     router = JaxRouter("attn", "attn", qp, cp, memb, reward="R2",
                        cost_scaler=SCALER, version=3,
                        centroids=np.random.default_rng(12).standard_normal(
                            (20, 768)).astype(np.float32))
     if balance_texts is None:
         return router
-    # Shift member 1's quality bias so the R2 choice splits the batch: both
-    # members then generate, and both packages' generation is compared.
+    # Lift every quality bias by one amount, so member 0's predicted
+    # quality is at least 0.1 and each chosen member's clears a semantic
+    # cache's admission floor; then shift members 1 and 2's so the R2
+    # choice splits the batch: every member generates, and both packages'
+    # generation is compared on each.
     s, c = router.predict(jax_embed_texts(balance_texts))
-    e = np.exp(-c.astype(np.float32))
-    flip = (s[:, 0] * e[:, 0] - s[:, 1] * e[:, 1]) / e[:, 1]
-    bo = np.asarray(qp["bo"]).copy()
-    bo[1] += float(np.median(flip))
-    return router.with_updates(quality_params={**qp, "bo": jax.numpy.asarray(bo)})
+    s = np.asarray(s, np.float64)
+    lift = 0.1 - s[:, 0].min()
+    bo = np.asarray(qp["bo"]) + lift + _balancing_shift(s + lift, c)
+    return router.with_updates(quality_params={
+        **qp, "bo": jax.numpy.asarray(bo.astype(np.float32))})
 
 
 def _port_pool(jax_pool):
@@ -111,7 +147,7 @@ def test_serve_matches_reference(engines):
         ragged[i] = p
     ref = jax_engine.serve(texts, ragged, max_new=4)
     out = port_engine.serve(texts, prompts, max_new=4)
-    assert set(ref["choices"].tolist()) == {0, 1}, "both members must generate"
+    assert set(ref["choices"].tolist()) == set(range(K)), "every member must generate"
     np.testing.assert_array_equal(out["choices"], ref["choices"])
     np.testing.assert_array_equal(out["per_member_counts"], ref["per_member_counts"])
     for got, want in zip(out["outputs"], ref["outputs"]):
@@ -180,7 +216,7 @@ def test_jax_checkpoint_loads_bitwise_in_port(tmp_path):
 
 
 def test_port_checkpoint_loads_bitwise_in_jax(tmp_path):
-    router = init_router(2, seed=4, device="cpu")
+    router = init_router(K, seed=4, device="cpu")
     router.cost_scaler = SCALER
     path = str(tmp_path / "r.npz")
     save_router(path, router, pool_names=NAMES)
@@ -208,6 +244,17 @@ def test_cost_rates_match_reference(name):
     assert arch_cost_rate(get_config(name)) == jax_arch_cost_rate(jax_get_config(name))
 
 
+def test_moe_member_is_priced_by_its_active_parameters():
+    """granite-moe's rate counts its top-8 of 32 experts: the pool's
+    cheapest member per token, below the dense qwen3-0.6b."""
+    cfg = get_config("granite-moe-1b-a400m")
+    assert (cfg.param_count(), cfg.active_param_count()) == (1_385_480_192, 479_510_528)
+    per_token = arch_cost_per_token(cfg)
+    assert per_token == jax_arch_cost_per_token(jax_get_config("granite-moe-1b-a400m"))
+    assert per_token == pytest.approx(2.1098463232e-07, rel=1e-10)
+    assert per_token < arch_cost_per_token(get_config("qwen3-0.6b"))
+
+
 def test_requests_are_seeded_and_in_vocab():
     a = synthetic_requests(6, 100, seed=1)
     b = synthetic_requests(6, 100, seed=1)
@@ -215,3 +262,20 @@ def test_requests_are_seeded_and_in_vocab():
     for p, q in zip(a[1], b[1]):
         np.testing.assert_array_equal(p, q)
         assert 16 <= len(p) <= 128 and p.min() >= 0 and p.max() < 100
+
+
+def test_default_pool_is_the_references_and_trains_for_three_members():
+    """The reference's default pool, in its order; the router trains for
+    K = 3, and cost order maps granite-moe (the cheapest per token) to the
+    cheapest API model's quality column, as the reference maps it."""
+    names = DEFAULT_POOL.split(",")
+    assert DEFAULT_POOL == jax_make_parser().get_default("pool")
+    engine = build_engine(names, smoke=True, device="cpu", epochs=2, n_traffic=200)
+    assert engine.router.n_members == 3
+    assert [m.name for m in engine.pool] == names
+    data = generate(200, seed=0)
+    cols = pool_quality_columns(engine.pool, data)
+    assert cols == jax_pool_quality_columns(jax_build_pool(names, seed=0), data)
+    assert cols[names.index("granite-moe-1b-a400m")] == int(np.argmin(data.cost.mean(0)))
+    s, c = engine.score_texts(["prove the integral converges", "write a short poem"])
+    assert s.shape == c.shape == (2, 3) and np.isfinite(s).all()
