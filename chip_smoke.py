@@ -47,22 +47,37 @@ Phases (any failure raises and exits non-zero before the last line):
      the training split against the router's k-means centroids.
  10. lookup: a deployment-size cache (cap 4096, at least 512 entries)
      answers 64 queries through the kernel; its hits equal a CPU twin's.
- 11. table2: the paper's Table 2 on pool1 (K = 5) with benchmarks/common.py's
+ 11. attn_long: with the default pool freed, smoke qwen1.5-4b (nonzero QKV
+     biases) and gemma3-27b (window 8) on the card against the CPU at 17 and
+     2048 tokens (1e-4); a pool of qwen3-0.6b, qwen1.5-4b and gemma3-27b at
+     full width, fp32, gemma3 cut to 8 layers (7 local with window 1024, 1
+     global), with its router trained through ``train_engine``; 8 requests
+     served, then two of 2500 and 40 tokens (the engine pads the batch to
+     the flash chunk), and the routing split of the 240 held-out queries
+     through ``router_xattn`` at K = 3 (1e-5 against the plain predictor); gemma3's
+     prompts of 1020, 1536, 2048 and 4096 tokens as one left-padded batch
+     and each alone (a part excused only at a logit margin of at most 1e-4);
+     one full-width gemma3 layer's flash against dense at S 4096 and its ring
+     cache against a full cache across the wrap (1e-4); prefill and decode
+     step of qwen1.5-4b and gemma3 at S 1536, 2048 and 4096 with the
+     device's busy time and the decode step's bytes bound.
+ 12. table2: the paper's Table 2 on pool1 (K = 5) with benchmarks/common.py's
      defaults (4000 queries, 300 epochs): the attention router and the MLP
      trained on the card, KNN (k = 20), SVM, LLM-Blender and the oracle, each
      with AIQ and perf_max over the 25-point lambda grid; the same attention
      quality predictor trained on the CPU from the same initial params must
      agree (losses rtol 1e-3, AIQ 5e-3); ``router_xattn`` on the trained
      params over the 1000 held-out queries (1e-5), timed.
-Each path (serve, moe, trace, lookup) runs with every kernel's launch count
-set to 0 just before it and read just after; a kernel of the path that was
-not launched fails the run. The kernel checks on trained params (train,
+Each path (serve, moe, trace, lookup, attn_long) runs with every kernel's
+launch count set to 0 just before it and read just after; a kernel of the
+path that was not launched fails the run. The kernel checks on trained params (train,
 table2) are counted the same way. The second-to-last line is a JSON object
 with the kernels' numbers, the last ``{"ok": true, "device": {...}}``. The
 kernel libraries are built into build/repro_torch/ under the checkout.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -96,6 +111,16 @@ TRACE_REQUESTS = 192
 DRIFT_WINDOW = 48
 LOOKUP_CAP = 4096
 LOOKUP_QUERIES = 64
+# [attn_long]: a pool of the attention members, gemma3-27b at full width cut
+# to one repeat of its 6-layer pattern (5 local, 1 global) plus its 2-local
+# remainder; the default pool is freed first.
+ATTN_POOL = ["qwen3-0.6b", "qwen1.5-4b", "gemma3-27b"]
+WINDOW_MEMBER = "gemma3-27b"
+WINDOW_MEMBER_LAYERS = 8
+LONG_PROMPTS = (1020, 1536, 2048, 4096)
+PREFILL_LENGTHS = (1536, 2048, 4096)
+# Served beside each other: 2500 is past FLASH_MIN_SEQ and off its chunk.
+SERVED_LONG = (2500, 40)
 
 
 def log(msg: str) -> None:
@@ -418,7 +443,7 @@ def _synced(fn):
 def member_profile(member, tok, mask, tag) -> dict:
     """A member's prefill of ``tok`` and its decode steps, on the host clock
     (ending in a device sync) and under torch.profiler: ms, device busy ms
-    and idle share of each, and the three longest device kernels of a step."""
+    and idle share of each, and the three longest device kernels of each."""
     from repro_torch.models import lm
 
     cfg = member.cfg
@@ -427,7 +452,7 @@ def member_profile(member, tok, mask, tag) -> dict:
         caches = lm.init_caches(cfg, b, s + MAX_NEW, "cuda")
         t_pre, (logits, caches) = _synced(
             lambda: lm.apply_lm_prefill(cfg, member.params, tok, caches, mask))
-        pre_busy, _ = profile_device(lambda: lm.apply_lm_prefill(
+        pre_busy, pre_by_name = profile_device(lambda: lm.apply_lm_prefill(
             cfg, member.params, tok, lm.init_caches(cfg, b, s + MAX_NEW, "cuda"), mask))
         nxt = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
         steps = [_synced(lambda i=i: lm.apply_lm_decode(cfg, member.params, nxt,
@@ -445,8 +470,9 @@ def member_profile(member, tok, mask, tag) -> dict:
         f"idle share {out['prefill_idle']:.3f}), decode step median {step * 1e3:.2f} ms "
         f"({b / step:.0f} tokens/s; profiled: device busy {busy:.2f} ms -> idle share "
         f"{out['decode_idle']:.3f})")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:3]:
-        log(f"[{tag}]   {ms:8.3f} ms  {name[:100]}")
+    for what, names in (("prefill", pre_by_name), ("decode step", by_name)):
+        for name, ms in sorted(names.items(), key=lambda kv: -kv[1])[:3]:
+            log(f"[{tag}]   {what} {ms:8.3f} ms  {name[:100]}")
     return out
 
 
@@ -475,9 +501,46 @@ def phase_breakdown(engine, texts, prompts):
         log(f"[breakdown]   {ms:8.3f} ms  {name[:100]}")
 
 
-def phase_reference(engine, texts):
+def smoke_card_vs_cpu(name, lengths, tag) -> float:
+    """A smoke config's seeded params on the card and on the CPU: prefill of
+    left-padded prompts of ``lengths`` and two decode steps, logits within
+    1e-4; greedy tokens equal. Returns the largest logit gap."""
     from repro_torch.common.tree import tree_map
     from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import pad_prompts, prompt_pad_mask
+
+    cfg = get_smoke_config(name)
+    params_cpu = lm.seed_qkv_biases(lm.init_lm(torch.Generator().manual_seed(5), cfg), cfg)
+    params_gpu = tree_map(lambda t: t.cuda(), params_cpu)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32) for n in lengths]
+    tok, mask = pad_prompts(prompts), prompt_pad_mask(prompts)
+    b, s = tok.shape
+    e = 0.0
+    with torch.inference_mode():
+        c_cpu, c_gpu = lm.init_caches(cfg, b, s + 3, "cpu"), lm.init_caches(cfg, b, s + 3, "cuda")
+        for i in range(3):      # the prefill, then two decode steps
+            if i == 0:
+                lg_cpu, _ = lm.apply_lm_prefill(cfg, params_cpu, tok, c_cpu, mask)
+                lg_gpu, _ = lm.apply_lm_prefill(cfg, params_gpu, tok.cuda(), c_gpu,
+                                                mask.cuda())
+                nxt = torch.argmax(lg_cpu[:, -1, :cfg.vocab_size], -1)[:, None]
+            else:
+                lg_cpu, _ = lm.apply_lm_decode(cfg, params_cpu, nxt, c_cpu, s + i - 1)
+                lg_gpu, _ = lm.apply_lm_decode(cfg, params_gpu, nxt.cuda(), c_gpu, s + i - 1)
+            e = max(e, float((lg_gpu.cpu() - lg_cpu).abs().max()))
+            check(torch.allclose(lg_gpu.cpu(), lg_cpu, rtol=1e-4, atol=1e-4),
+                  f"smoke {name} S={s} logits card vs CPU (step {i}), max |err| {e:.3g}")
+    t_cpu = lm.greedy_generate(cfg, params_cpu, tok, 6, attn_mask=mask)
+    t_gpu = lm.greedy_generate(cfg, params_gpu, tok.cuda(), 6, attn_mask=mask.cuda())
+    check(torch.equal(t_cpu, t_gpu.cpu()), f"smoke {name} S={s} greedy tokens card vs CPU")
+    log(f"[{tag}] smoke {name} on card vs CPU, prompts {list(lengths)} (S {s}): prefill "
+        f"and 2 decode steps' logits max |err| {e:.3g} (tol 1e-4), greedy tokens equal")
+    return e
+
+
+def phase_reference(engine, texts):
     from repro_torch.models import lm
     from repro_torch.serving.engine import pad_prompts, prompt_pad_mask
 
@@ -490,32 +553,7 @@ def phase_reference(engine, texts):
     log(f"[reference] engine scores: kernel vs plain predictor max |err| {e:.3g}")
 
     for name in ("qwen3-0.6b", MOE_MEMBER):
-        cfg = get_smoke_config(name)
-        params_cpu = lm.init_lm(torch.Generator().manual_seed(5), cfg)
-        params_gpu = tree_map(lambda t: t.cuda(), params_cpu)
-        rng = np.random.default_rng(3)
-        prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32) for n in (5, 17, 9)]
-        tok, mask = pad_prompts(prompts), prompt_pad_mask(prompts)
-        e = 0.0
-        with torch.inference_mode():
-            c_cpu, c_gpu = lm.init_caches(cfg, 3, 20, "cpu"), lm.init_caches(cfg, 3, 20, "cuda")
-            for i in range(3):      # the prefill, then two decode steps
-                if i == 0:
-                    lg_cpu, _ = lm.apply_lm_prefill(cfg, params_cpu, tok, c_cpu, mask)
-                    lg_gpu, _ = lm.apply_lm_prefill(cfg, params_gpu, tok.cuda(), c_gpu,
-                                                    mask.cuda())
-                    nxt = torch.argmax(lg_cpu[:, -1, :cfg.vocab_size], -1)[:, None]
-                else:
-                    lg_cpu, _ = lm.apply_lm_decode(cfg, params_cpu, nxt, c_cpu, 16 + i)
-                    lg_gpu, _ = lm.apply_lm_decode(cfg, params_gpu, nxt.cuda(), c_gpu, 16 + i)
-                e = max(e, float((lg_gpu.cpu() - lg_cpu).abs().max()))
-                check(torch.allclose(lg_gpu.cpu(), lg_cpu, rtol=1e-4, atol=1e-4),
-                      f"smoke {name} logits card vs CPU (step {i}), max |err| {e:.3g}")
-        t_cpu = lm.greedy_generate(cfg, params_cpu, tok, 6, attn_mask=mask)
-        t_gpu = lm.greedy_generate(cfg, params_gpu, tok.cuda(), 6, attn_mask=mask.cuda())
-        check(torch.equal(t_cpu, t_gpu.cpu()), f"smoke {name} greedy tokens card vs CPU")
-        log(f"[reference] smoke {name} on card vs CPU: prefill and 2 decode steps' logits "
-            f"max |err| {e:.3g} (tol 1e-4), greedy tokens equal")
+        smoke_card_vs_cpu(name, (5, 17, 9), "reference")
 
     for member in engine.pool:
         p = [np.arange(1, 17, dtype=np.int32), np.arange(3, 11, dtype=np.int32)]
@@ -533,19 +571,22 @@ def decode_step_bound(cfg, b, s_kv, experts_read) -> tuple:
     """Least time on an H100 SXM for one fp32 decode step of ``b`` tokens
     over ``s_kv`` cached positions: bytes (every weight but the embedding
     table read once, with ``experts_read`` expert SwiGLUs of the MoE layers in
-    place of all of them; ``b`` table rows; the K/V cache in use; the logits
-    written) over HBM bandwidth vs fp32 operations (2 per active weight and
-    token, 4 per cached position, head dim and query head for the attention)
-    over the CUDA-core peak. Returns (ms, "bytes" | "operations", bytes)."""
+    place of all of them; ``b`` table rows; the K/V cache in use, at most
+    the window's positions in a sliding-window layer; the logits written)
+    over HBM bandwidth vs fp32 operations (2 per active weight and token, 4
+    per attended position, head dim and query head) over the CUDA-core peak.
+    Returns (ms, "bytes" | "operations", bytes)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     table = cfg.padded_vocab * d
     n_moe = sum(1 for spec in cfg.layer_plan() if spec.ffn == "moe")
     expert = 3 * d * cfg.resolved_d_ff_expert
     weights = cfg.param_count() - table - (n_moe * cfg.n_experts - experts_read) * expert
-    kv = 2 * cfg.n_layers * b * s_kv * cfg.n_kv_heads * hd
+    attended = sum(min(spec.window, s_kv) if spec.window > 0 else s_kv
+                   for spec in cfg.layer_plan())
+    kv = 2 * b * attended * cfg.n_kv_heads * hd
     n_bytes = 4 * (weights + b * d + kv + b * cfg.padded_vocab)
     ops = (2 * b * (cfg.active_param_count() - table)
-           + 4 * cfg.n_layers * b * s_kv * cfg.n_heads * hd)
+           + 4 * b * attended * cfg.n_heads * hd)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
     return (max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"),
             n_bytes)
@@ -714,6 +755,249 @@ def _keep_router_gap(probs, k, margins):
     top = torch.topk(probs, k + 1, dim=-1).values
     margins.append((top[..., k - 1] - top[..., k]).min())
     return probs
+
+
+def build_attn_pool():
+    """qwen3-0.6b, qwen1.5-4b and gemma3-27b at full width, fp32, on the
+    card, gemma3-27b cut in depth to ``WINDOW_MEMBER_LAYERS`` layers (its
+    pattern once, then its remainder); seeds and the published configs'
+    cost rates as ``build_pool`` gives them."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_pool
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import PoolMember, arch_cost_rate
+
+    pool = build_pool(ATTN_POOL[:-1], seed=0, device="cuda")
+    full = get_config(WINDOW_MEMBER)
+    cfg = dataclasses.replace(full, n_layers=WINDOW_MEMBER_LAYERS, n_repeats=1)
+    gen = torch.Generator(device="cuda").manual_seed(len(pool))
+    pool.append(PoolMember(name=WINDOW_MEMBER, cfg=cfg, params=lm.init_lm(gen, cfg),
+                           cost_rate=arch_cost_rate(full)))
+    return pool
+
+
+def _flash_band(s, window) -> str:
+    """The k chunks each q chunk of a flash prefill of ``s`` visits."""
+    from repro_torch.models import attention as attn_mod
+
+    c = attn_mod.FLASH_CHUNK
+    bands = [attn_mod.flash_band(qi * c, (qi + 1) * c, window, c) for qi in range(s // c)]
+    return " ".join(f"q{qi}:k{b.start}-{b.stop - 1}" for qi, b in enumerate(bands))
+
+
+def phase_attn_long(rx, pl2) -> dict:
+    """Sliding-window and long-prompt attention: smoke qwen1.5-4b and gemma3
+    card vs CPU; the attention pool at full width with its trained router
+    serving and routing through router_xattn; gemma3's long prompts alone
+    and batched; one full-width gemma3 layer's flash vs dense and ring vs
+    full cache; prefill and decode times of the two new members."""
+    import dataclasses
+
+    from repro_torch.common.tree import flatten_with_paths
+    from repro_torch.core import DEFAULT_LAMBDA_GRID
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.layers import apply_rope
+    from repro_torch.serving.engine import pad_prompts, prompt_pad_mask
+
+    for name in ("qwen1.5-4b", WINDOW_MEMBER):
+        for lengths in ((5, 17, 9), (attn_mod.FLASH_MIN_SEQ,)):
+            smoke_card_vs_cpu(name, lengths, "attn_long")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pool = build_attn_pool()
+    torch.cuda.synchronize()
+    t_pool = time.perf_counter() - t0
+    for m in pool:
+        n = sum(p.numel() for p in flatten_with_paths(m.params).values())
+        windows = sorted({spec.window for spec in m.cfg.layer_plan()})
+        log(f"[attn_long] {m.name}: {m.cfg.n_layers} layers d_model={m.cfg.d_model} "
+            f"{m.cfg.n_heads}/{m.cfg.n_kv_heads} heads of {m.cfg.resolved_head_dim}, windows "
+            f"{windows}, qkv_bias {m.cfg.qkv_bias}; {n / 1e9:.4f}B params "
+            f"({4 * n / 2**30:.2f} GiB) fp32; $ {m.cost_rate:.6g} per request")
+    log(f"[attn_long] pool built in {t_pool:.2f}s; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak")
+    t0 = time.perf_counter()
+    engine = serve_mod.train_engine(pool, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[attn_long] router trained on the card through train_engine in "
+        f"{time.perf_counter() - t0:.2f}s (K = {engine.router.n_members})")
+
+    # The path: serve 8 requests, then the routing split of the held-out queries.
+    names = [m.name for m in engine.pool]
+    data, _, _ = serve_mod.synthetic_pool_traffic(engine.pool, seed=0)
+    _, _, te = data.split(seed=0)
+    vocab = min(m.cfg.vocab_size for m in engine.pool)
+    texts, prompts = serve_mod.synthetic_requests(N_REQUESTS, vocab, seed=0)
+    rx.router_xattn_cuda.launches = 0
+    pl2.pairwise_l2_cuda.launches = 0
+    t_serve, res = _synced(lambda: engine.serve(texts, prompts, max_new=MAX_NEW))
+    # Two served prompts, one off the flash chunk: the engine pads the batch.
+    rng = np.random.default_rng(23)
+    off_chunk = [rng.integers(0, vocab, size=n, dtype=np.int32) for n in SERVED_LONG]
+    t_long, res_long = _synced(lambda: engine.serve(texts[:len(off_chunk)], off_chunk,
+                                                    max_new=MAX_NEW))
+    s_hat, c_hat = engine.score_emb(data.emb[te])
+    torch.cuda.synchronize()
+    launches = {"router_xattn": rx.router_xattn_cuda.launches,
+                "pairwise_l2": pl2.pairwise_l2_cuda.launches}
+    check(launches["router_xattn"] == 3, f"two serves and the routing split launched "
+                                         f"router_xattn {launches['router_xattn']} times, not 3")
+    for r in (res, res_long):
+        for i, out in enumerate(r["outputs"]):
+            member = engine.pool[int(r["choices"][i])]
+            check(len(out) == MAX_NEW and 0 <= int(out.min())
+                  and int(out.max()) < member.cfg.vocab_size,
+                  f"[attn_long] request {i}: {len(out)} tokens in {member.name}'s vocab")
+    s_plain, c_plain = engine.router.predict(data.emb[te])
+    e = float(np.abs(s_hat - s_plain).max())
+    check(np.allclose(s_hat, s_plain, rtol=1e-5, atol=1e-5),
+          f"router_xattn K={len(names)} on the attention pool's router, max |err| {e:.3g}")
+    check(np.array_equal(c_hat, c_plain), "cost path identical on both scoring paths")
+    log(f"[attn_long] engine.serve: {N_REQUESTS} requests, prompts "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens, max_new={MAX_NEW}, wall "
+        f"{t_serve:.3f}s; per-member counts " + ", ".join(
+            f"{n}={int(c)}" for n, c in zip(names, res["per_member_counts"]))
+        + f"; total $ {res['total_cost']:.6g}")
+    log(f"[attn_long] engine.serve of prompts of {'/'.join(map(str, SERVED_LONG))} tokens "
+        f"(the engine pads the batch to S {attn_mod.prefill_width(max(SERVED_LONG))}): wall "
+        f"{t_long:.3f}s; members " + ", ".join(
+            names[int(c)] for c in res_long["choices"]) + "; tokens in vocab")
+    log(f"[attn_long] router_xattn K={len(names)} B={len(te)} on the trained params: max |err| "
+        f"{e:.3g} vs the plain predictor (tol 1e-5); launches on the path: router_xattn "
+        f"{launches['router_xattn']} (serve 2, split 1), pairwise_l2 {launches['pairwise_l2']}")
+    rows = [(lam, np.bincount(engine.choose(s_hat, c_hat, lam), minlength=len(names)))
+            for lam in DEFAULT_LAMBDA_GRID]
+    log(f"[attn_long] routing split of the {len(te)} held-out queries, counts "
+        f"{'/'.join(names)} per lambda:")
+    for i in range(0, len(rows), 5):
+        log("[attn_long]   " + "; ".join(f"{lam:.3g}: " + "/".join(str(int(c)) for c in counts)
+                                         for lam, counts in rows[i:i + 5]))
+
+    # Long prompts on gemma3-27b (8 L): one left-padded batch, then each alone.
+    member = engine.pool[names.index(WINDOW_MEMBER)]
+    cfg = member.cfg
+    window = max(spec.window for spec in cfg.layer_plan())
+    rng = np.random.default_rng(19)
+    long_prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+                    for n in LONG_PROMPTS]
+    tok, mask = pad_prompts(long_prompts).cuda(), prompt_pad_mask(long_prompts).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t_batch, (batch_toks, batch_gaps) = _synced(
+        lambda: greedy_margins(cfg, member.params, tok, mask, MAX_NEW))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(batch_toks.shape == (len(long_prompts), MAX_NEW) and 0 <= batch_toks.min()
+          and batch_toks.max() < cfg.vocab_size, "long-prompt batch tokens in vocab")
+    log(f"[attn_long] {WINDOW_MEMBER} ({cfg.n_layers} L) long prompts {list(LONG_PROMPTS)} as "
+        f"one left-padded batch (S {tok.shape[1]}, flash with kv_valid; band of a windowed "
+        f"layer {_flash_band(tok.shape[1], window)}): {t_batch:.3f}s for {MAX_NEW} tokens each; "
+        f"device memory peak {peak:.2f} GiB")
+    parts = []
+    for i, p in enumerate(long_prompts):
+        t_alone, (alone, alone_gaps) = _synced(lambda p=p: greedy_margins(
+            cfg, member.params, pad_prompts([p]).cuda(), prompt_pad_mask([p]).cuda(), MAX_NEW))
+        n = len(p)
+        how = ("flash, band " + _flash_band(n, window) if n >= attn_mod.FLASH_MIN_SEQ
+               else "dense") + (", ring tail at prefill" if n >= window else
+                                f", ring wraps in decode at {window}" if n + MAX_NEW > window
+                                else "")
+        same = np.array_equal(alone[0], batch_toks[i])
+        log(f"[attn_long]   {n} tokens alone ({how}): {t_alone:.3f}s, "
+            + ("equal to its batch tokens" if same else "parts from its batch tokens"))
+        if same:
+            continue
+        j = int(np.flatnonzero(alone[0] != batch_toks[i])[0])
+        gap = float(min(alone_gaps[0, j], batch_gaps[i, j]))
+        parts.append(i)
+        log(f"[attn_long]   request {i} alone parts from the batch at token {j}: logit margin "
+            f"{gap:.3g}")
+        check(gap <= 1e-4, f"{n}-token request alone parts from the batch at token {j} with "
+                           f"logit margin {gap:.3g} above 1e-4")
+    log(f"[attn_long] each long request alone vs in the batch: "
+        f"{len(long_prompts) - len(parts)} of {len(long_prompts)} equal"
+        + (f"; parts at near ties: requests {parts}" if parts else ""))
+
+    # One full-width gemma3 layer of each kind: flash vs dense at S 4096.
+    plan = cfg.layer_plan()
+    s_long = max(LONG_PROMPTS)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    errs = {}
+    with torch.inference_mode():
+        for li in (next(i for i, sp in enumerate(plan) if sp.window > 0),
+                   next(i for i, sp in enumerate(plan) if sp.window == 0)):
+            spec, p = plan[li], member.params["layers"][li]["mixer"]
+            x = torch.randn((2, s_long, cfg.d_model), generator=gen, device="cuda")
+            valid = torch.ones((2, s_long), dtype=torch.bool, device="cuda")
+            valid[1, :s_long - LONG_PROMPTS[0]] = False
+            pos = torch.arange(s_long, dtype=torch.int32, device="cuda").expand(2, s_long)
+            q = apply_rope(attn_mod._project_q(cfg, p, x), pos, cfg.rope_theta)
+            k, v = attn_mod._project_kv(cfg, p, x)
+            k = apply_rope(k, pos, cfg.rope_theta)
+            t_flash, flash = _synced(lambda: attn_mod.flash_attention(
+                q, k, v, window=spec.window, kv_valid=valid))
+            mask = attn_mod.causal_mask(s_long, s_long, "cuda", window=spec.window)
+            t_dense, dense = _synced(lambda: attn_mod.dense_attention(
+                q, k, v, mask & valid[:, None, :]))
+            e = float((flash[valid] - dense[valid]).abs().max())
+            check(torch.allclose(flash[valid], dense[valid], rtol=1e-4, atol=1e-4),
+                  f"full-width layer {li} (window {spec.window}) flash vs dense at S {s_long}, "
+                  f"max |err| {e:.3g}")
+            errs[f"flash vs dense, window {spec.window}"] = e
+            del flash, dense
+            log(f"[attn_long] full-width {WINDOW_MEMBER} layer {li} (window {spec.window}), "
+                f"B 2 (row 1 with {s_long - LONG_PROMPTS[0]} pads), S {s_long}: flash vs dense "
+                f"max |err| {e:.3g} on real rows (tol 1e-4); flash {t_flash * 1e3:.2f} ms, "
+                f"dense {t_dense * 1e3:.2f} ms (host clock, one call)")
+        # Ring cache vs a full cache with the window mask, across the wrap.
+        li = next(i for i, sp in enumerate(plan) if sp.window > 0)
+        spec, p = plan[li], member.params["layers"][li]["mixer"]
+        for s0 in LONG_PROMPTS[:2]:
+            x = torch.randn((1, s0 + MAX_NEW, cfg.d_model), generator=gen, device="cuda")
+            pos = torch.arange(s0, dtype=torch.int32, device="cuda")[None]
+            ring = attn_mod.init_kv_cache(cfg, spec, 1, s0 + MAX_NEW, "cuda")
+            full = attn_mod.init_kv_cache(cfg, dataclasses.replace(spec, window=0), 1,
+                                          s0 + MAX_NEW, "cuda")
+            y_ring, ring = attn_mod.self_attention_prefill(cfg, spec, p, x[:, :s0], pos, ring)
+            y_full, full = attn_mod.self_attention_prefill(cfg, spec, p, x[:, :s0], pos, full)
+            e = float((y_ring - y_full).abs().max())
+            for t in range(s0, s0 + MAX_NEW):
+                o_ring, ring = attn_mod.self_attention_decode(cfg, spec, p, x[:, t:t + 1], ring, t)
+                o_full, full = attn_mod.self_attention_decode(cfg, spec, p, x[:, t:t + 1], full, t)
+                e = max(e, float((o_ring - o_full).abs().max()))
+                check(torch.allclose(o_ring, o_full, rtol=1e-4, atol=1e-4),
+                      f"ring vs full cache at position {t}, max |err| {e:.3g}")
+            errs[f"ring vs full cache from {s0}"] = e
+            top = int(ring["slot_pos"].max())
+            check(ring["k"].shape[1] == spec.window and top == s0 + MAX_NEW - 1
+                  and int(ring["slot_pos"][top % spec.window]) == top,
+                  f"ring of {spec.window} slots holds position {top} at slot {top % spec.window}")
+            log(f"[attn_long] full-width layer {li} (window {spec.window}): prefill {s0} then "
+                f"{MAX_NEW} decode steps, ring of {ring['k'].shape[1]} slots vs a "
+                f"{full['k'].shape[1]}-slot cache with the window mask: max |err| {e:.3g} "
+                f"(tol 1e-4); position {top} sits in slot {top % spec.window}")
+            del ring, full
+
+    # Times of the two new members at long prompts (B 1), against the decode bound.
+    times = {}
+    for name in ATTN_POOL[1:]:
+        m = engine.pool[names.index(name)]
+        rng = np.random.default_rng(29)
+        for n in PREFILL_LENGTHS:
+            p = [rng.integers(0, m.cfg.vocab_size, size=n, dtype=np.int32)]
+            prof = member_profile(m, pad_prompts(p).cuda(), prompt_pad_mask(p).cuda(),
+                                  "attn_long")
+            bound_ms, by, n_bytes = decode_step_bound(m.cfg, 1, n + MAX_NEW - 1, 0)
+            log(f"[attn_long] {name} S={n} decode step bound {n_bytes / 1e9:.3f} GB -> "
+                f"{bound_ms:.4f} ms ({by}); device busy {prof['decode_busy_ms']:.2f} ms "
+                f"(bound / busy {bound_ms / prof['decode_busy_ms']:.3f})")
+            times[f"{name} S={n}"] = {**prof, "decode_bound_ms": bound_ms,
+                                      "decode_bound_by": by}
+    del engine, pool
+    return {"launches": launches, "max_abs_err": errs, "times": times}
 
 
 def pairwise_l2_bound(n, k, d) -> tuple:
@@ -1209,6 +1493,18 @@ def main() -> int:
     lookup = phase_lookup(trace["radius"], pl2)
     log(f"[lookup] phase wall {time.perf_counter() - t0:.2f}s")
 
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2**30
+    check(left < 1.0, f"{left:.2f} GiB still allocated after the default pool was freed")
+    log(f"[attn_long] default pool freed: {left:.2f} GiB allocated")
+    t0 = time.perf_counter()
+    attn_long = phase_attn_long(rx, pl2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[attn_long] phase wall {time.perf_counter() - t0:.2f}s")
+
     t0 = time.perf_counter()
     table2 = phase_table2(rx, ref)
     log(f"[table2] phase wall {time.perf_counter() - t0:.2f}s")
@@ -1224,7 +1520,8 @@ def main() -> int:
         "launches_by_path": {"serve": serve_launches["router_xattn"],
                              "moe": moe_run["launches"]["router_xattn"],
                              "trace": trace["launches"]["router_xattn"],
-                             "train": train["launches"], "table2": table2["launches"]},
+                             "train": train["launches"], "table2": table2["launches"],
+                             "attn_long": attn_long["launches"]["router_xattn"]},
         "max_abs_err_trained": {"train": train["max_abs_err"],
                                 "table2": table2["timing"]["max_abs_err"]},
         "max_abs_err": err["float32"], "max_abs_err_bf16": err["bfloat16"],
@@ -1239,7 +1536,8 @@ def main() -> int:
         "launches_by_path": {"serve": serve_launches["pairwise_l2"],
                              "moe": moe_run["launches"]["pairwise_l2"],
                              "trace": trace["launches"]["pairwise_l2"],
-                             "lookup": lookup["launches"]},
+                             "lookup": lookup["launches"],
+                             "attn_long": attn_long["launches"]["pairwise_l2"]},
         "max_abs_err": pl2_err["float32"], "max_abs_err_bf16": pl2_err["bfloat16"],
         **window,
         "library_call": "torch.cdist(x, c).square(), a yardstick: cdist takes a "

@@ -2,8 +2,9 @@
 
 ``get_config(name)`` returns the full published config; ``get_smoke_config``
 the reduced same-family variant the CPU tests use. Ported so far: the
-reference's default serve pool, two dense attention members and the
-mixture-of-experts granite-moe-1b-a400m. The reference's other seven
+reference's default serve pool (qwen3-0.6b, granite-3-8b and the
+mixture-of-experts granite-moe-1b-a400m), qwen1.5-4b (QKV bias) and
+gemma3-27b (sliding-window locals). The reference's other five
 architectures wait in ROADMAP.md's Queue 1 (item 6) and raise
 ``NotImplementedError`` here.
 """
@@ -14,12 +15,15 @@ from typing import Dict, List
 
 from repro_torch.configs.base import ArchConfig
 
-ARCH_IDS: List[str] = ["qwen3-0.6b", "granite-moe-1b-a400m", "granite-3-8b"]
+ARCH_IDS: List[str] = ["qwen3-0.6b", "granite-moe-1b-a400m", "granite-3-8b",
+                       "qwen1.5-4b", "gemma3-27b"]
 
 _MODULES: Dict[str, str] = {
     "qwen3-0.6b": "qwen3_0_6b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "granite-3-8b": "granite_3_8b",
+    "qwen1.5-4b": "qwen1_5_4b",
+    "gemma3-27b": "gemma3_27b",
 }
 
 

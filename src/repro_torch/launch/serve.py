@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --pool qwen3-0.6b,granite-moe-1b-a400m,granite-3-8b --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve \
+        --pool qwen3-0.6b,qwen1.5-4b,gemma3-27b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
         --trace neardup --semcache --requests 200
 
 builds the pool members at their published widths and depths on the CUDA
@@ -111,7 +113,19 @@ def build_engine(names: Sequence[str], router_path: Optional[str] = None,
                  smoke: bool = False, epochs: int = 120, n_traffic: int = 1200,
                  quality_kind: str = "attn") -> RoutedEngine:
     """Pool + trained router + engine on one device (the CUDA card by
-    default), as the reference's ``build_routed_engine``.
+    default), as the reference's ``build_routed_engine``:
+    :func:`build_pool`, then :func:`train_engine` on it."""
+    device = resolve_device(device)
+    pool = build_pool(names, seed=seed, device=device, smoke=smoke)
+    return train_engine(pool, router_path=router_path, seed=seed, device=device,
+                        epochs=epochs, n_traffic=n_traffic, quality_kind=quality_kind)
+
+
+def train_engine(pool: Sequence[PoolMember], router_path: Optional[str] = None,
+                 seed: int = 0, device: Optional[DeviceLike] = None,
+                 epochs: int = 120, n_traffic: int = 1200,
+                 quality_kind: str = "attn") -> RoutedEngine:
+    """A trained router and the engine over an already built ``pool``.
 
     The router trains on ``n_traffic`` synthetic RouterBench queries mapped
     onto the pool (75/5/20 split): model embeddings and centroids by
@@ -120,9 +134,9 @@ def build_engine(names: Sequence[str], router_path: Optional[str] = None,
     ``router_path`` loads a checkpoint instead and skips training.
     """
     device = resolve_device(device)
-    pool = build_pool(names, seed=seed, device=device, smoke=smoke)
+    pool = list(pool)
     if router_path is not None:
-        router = load_router(router_path, expect_pool_names=list(names),
+        router = load_router(router_path, expect_pool_names=[m.name for m in pool],
                              device=device)
         if router.n_members != len(pool):
             raise ValueError(f"checkpoint pool size {router.n_members} != "

@@ -1,16 +1,21 @@
 """Decoder LM over a layer plan of attention blocks with a SwiGLU MLP or an
 MoE FFN.
 
-The port of ``repro.models.lm`` for the reference's default serve pool
-(two dense members and the mixture-of-experts granite-moe). The reference
-stacks the repeated ``pattern``'s parameters on a leading ``n_repeats``
-axis and scans over it; here the plan is a plain loop over
+The port of ``repro.models.lm`` for its attention members: the reference's
+default serve pool (qwen3-0.6b, granite-3-8b and the mixture-of-experts
+granite-moe), qwen1.5-4b (QKV bias) and gemma3-27b (5:1 local:global,
+sliding-window locals on a ring cache). The reference stacks the repeated
+``pattern``'s parameters on a leading ``n_repeats`` axis, with the
+``remainder`` apart, and scans over it; here the plan is a plain loop over
 ``params["layers"]``, one parameter dict per layer in
 :meth:`ArchConfig.layer_plan` order (:mod:`repro_torch.bridge` unstacks
-the reference's tree into this layout).
+the reference's tree into this layout). Each layer's decode cache is made
+for its spec: a ring of ``min(window, max_len)`` slots for a windowed
+layer, a linear cache otherwise.
 
 Entry points:
-  * prefill: full prompt -> last-position logits + decode caches
+  * prefill: full prompt -> last-position logits + decode caches (dense
+    attention below 2048 tokens, banded flash attention from there)
   * decode:  one token + caches -> logits (caches updated in place)
   * greedy_generate: prefill, then ``max_new - 1`` decode steps
 """
@@ -109,8 +114,24 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Dict:
     }
 
 
+def seed_qkv_biases(params: Dict, cfg: ArchConfig, seed: int = 7) -> Dict:
+    """Give every QKV bias of ``params`` seeded nonzero values, in place.
+
+    :func:`init_lm` starts the biases at zero, as the reference does, so a
+    check of the bias path seeds them first. Returns ``params``.
+    """
+    if cfg.qkv_bias:
+        gen = torch.Generator(device=params["embedding"]["table"].device).manual_seed(seed)
+        for layer in params["layers"]:
+            for key in ("bq", "bk", "bv"):
+                b = layer["mixer"][key]
+                b.copy_(torch.randn(b.shape, generator=gen, device=b.device) * 0.5)
+    return params
+
+
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, device) -> List[Dict]:
-    """One decode cache per layer, in layer-plan order."""
+    """One decode cache per layer, in layer-plan order: a ring for a
+    sliding-window layer, ``max_len`` linear slots otherwise."""
     return [attn_mod.init_kv_cache(cfg, spec, batch, max_len, device)
             for spec in cfg.layer_plan()]
 

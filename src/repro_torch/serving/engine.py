@@ -26,6 +26,7 @@ from repro_torch.core.rewards import REWARDS
 from repro_torch.core.router import PredictiveRouter
 from repro_torch.data.featurizer import embed_texts
 from repro_torch.kernels import ops as kops
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import lm as lm_mod
 
 # $ per 1e12 FLOPs — anchors active-param FLOPs to an API-like price axis.
@@ -65,15 +66,22 @@ class PoolMember:
                                       attn_mask=mask)
 
 
+def _batch_width(prompts: Sequence[np.ndarray]) -> int:
+    return attn_mod.prefill_width(max(int(len(p)) for p in prompts))
+
+
 def pad_prompts(prompts: Sequence[np.ndarray], pad_id: int = 0) -> torch.Tensor:
-    """Left-pad variable-length token rows into one (B, S_max) int32 batch.
+    """Left-pad variable-length token rows into one (B, S) int32 batch.
 
     Left padding keeps the last prompt position real, which the greedy
     prefill conditions the first generated token on. Pass the matching
     :func:`prompt_pad_mask` into generate so pad keys are masked and each
-    request's output is invariant to its micro-batch neighbours.
+    request's output is invariant to its micro-batch neighbours. S is the
+    longest prompt, rounded up to a multiple of the flash chunk from
+    ``FLASH_MIN_SEQ`` tokens (:func:`attention.prefill_width`), so a long
+    prompt of any length meets the flash length rule.
     """
-    s_max = max(int(len(p)) for p in prompts)
+    s_max = _batch_width(prompts)
     out = np.full((len(prompts), s_max), pad_id, np.int32)
     for i, p in enumerate(prompts):
         p = np.asarray(p, np.int32)
@@ -82,8 +90,8 @@ def pad_prompts(prompts: Sequence[np.ndarray], pad_id: int = 0) -> torch.Tensor:
 
 
 def prompt_pad_mask(prompts: Sequence[np.ndarray]) -> torch.Tensor:
-    """(B, S_max) bool, True at real (right-aligned) token positions."""
-    s_max = max(int(len(p)) for p in prompts)
+    """(B, S) bool, True at real (right-aligned) token positions."""
+    s_max = _batch_width(prompts)
     mask = np.zeros((len(prompts), s_max), bool)
     for i, p in enumerate(prompts):
         mask[i, s_max - len(p):] = True

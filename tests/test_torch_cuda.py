@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain versions, training, and the
-mixture-of-experts member, on the card.
+"""The port's CUDA kernels against their plain versions, training, the
+mixture-of-experts member, and sliding-window and long-prompt attention,
+on the card.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (marker ``cuda``) and
 skips without one: a CUDA kernel has no CPU mode. The file imports no JAX,
@@ -22,6 +23,8 @@ from repro_torch.kernels.router_xattn import router_xattn_cuda
 from repro_torch.common.tree import tree_map
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch.serve import DEFAULT_POOL, build_engine, synthetic_requests
+from repro_torch.configs.base import ATTN, MLP, LayerSpec
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import lm, moe
 from repro_torch.serving.engine import RoutedEngine, pad_prompts, prompt_pad_mask
 from repro_torch.training import TrainConfig, train_dual_predictors, train_predictor
@@ -427,3 +430,75 @@ def test_build_engine_serves_the_default_pool_on_the_card(cuda):
     outs, costs = engine.generate_member(mi, prompts, max_new=4)
     assert all(len(o) == 4 and 0 <= o.min() and o.max() < 512 for o in outs)
     assert np.all(costs > 0)
+
+
+# ---------------------------------------------------------------------------
+# Sliding-window and long-prompt attention on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("window", [0, 16, 100])
+def test_flash_equals_dense_on_the_card(cuda, window):
+    """Banded flash against dense with the window mask on the card, with
+    softcap and left pads (real query rows), and against the CPU's flash."""
+    rng = np.random.default_rng(window)
+    b, s, hq, hkv, hd = 2, 256, 4, 2, 32
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               for shape in ((b, s, hq, hd), (b, s, hkv, hd), (b, s, hkv, hd)))
+    valid = torch.ones((b, s), dtype=torch.bool)
+    valid[0, :70] = False
+    kw = dict(window=window, q_chunk=64, k_chunk=64, softcap=30.0)
+    got = attn_mod.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                                   kv_valid=valid.to(cuda), **kw)
+    mask = attn_mod.causal_mask(s, s, cuda, window=window) & valid.to(cuda)[:, None, :]
+    dense = attn_mod.dense_attention(q.to(cuda), k.to(cuda), v.to(cuda), mask, 30.0)
+    torch.testing.assert_close(got[valid.to(cuda)], dense[valid.to(cuda)],
+                               rtol=2e-4, atol=2e-5)
+    cpu = attn_mod.flash_attention(q, k, v, kv_valid=valid, **kw)
+    torch.testing.assert_close(got.cpu(), cpu, rtol=2e-4, atol=2e-5)
+
+
+def test_ring_cache_equals_full_cache_on_the_card(cuda):
+    """A ring of 8 slots and a 24-slot linear cache, both masked to the
+    window, give equal decode outputs across three wraps."""
+    cfg = get_smoke_config("gemma3-27b")
+    spec = LayerSpec(mixer=ATTN, ffn=MLP, window=8)
+    p = attn_mod.init_attention(torch.Generator(device=cuda).manual_seed(0), cfg, spec)
+    b, steps = 2, 24
+    xs = torch.randn((b, steps, cfg.d_model), generator=torch.Generator(device=cuda)
+                     .manual_seed(1), device=cuda) * 0.3
+    ring = attn_mod.init_kv_cache(cfg, spec, b, 8, cuda)
+    full = attn_mod.init_kv_cache(cfg, LayerSpec(mixer=ATTN, ffn=MLP), b, steps, cuda)
+    for t in range(steps):
+        o_ring, ring = attn_mod.self_attention_decode(cfg, spec, p, xs[:, t:t + 1], ring, t)
+        o_full, full = attn_mod.self_attention_decode(cfg, spec, p, xs[:, t:t + 1], full, t)
+        torch.testing.assert_close(o_ring, o_full, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["qwen1.5-4b", "gemma3-27b"])
+@pytest.mark.parametrize("lengths", [(5, 17, 9), (2048, 1500)])
+def test_attention_members_on_the_card_equal_the_cpu(cuda, name, lengths):
+    """Smoke qwen1.5-4b (nonzero QKV biases) and gemma3-27b (window 8):
+    17-token prompts wrap the window in prefill and decode, 2048 takes
+    flash; prefill and two decode steps' logits within 1e-4 of the CPU's,
+    greedy tokens equal."""
+    cfg = get_smoke_config(name)
+    params = lm.seed_qkv_biases(lm.init_lm(torch.Generator().manual_seed(5), cfg), cfg)
+    params_gpu = tree_map(lambda t: t.to(cuda), params)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32) for n in lengths]
+    tok, mask = pad_prompts(prompts), prompt_pad_mask(prompts)
+    s = tok.shape[1]
+    with torch.inference_mode():
+        caches = {d: lm.init_caches(cfg, len(prompts), s + 3, d) for d in ("cpu", cuda)}
+        lg_cpu, _ = lm.apply_lm_prefill(cfg, params, tok, caches["cpu"], mask)
+        lg_gpu, _ = lm.apply_lm_prefill(cfg, params_gpu, tok.to(cuda), caches[cuda],
+                                        mask.to(cuda))
+        torch.testing.assert_close(lg_gpu.cpu(), lg_cpu, rtol=1e-4, atol=1e-4)
+        nxt = torch.argmax(lg_cpu[:, -1, :cfg.vocab_size], -1)[:, None].to(torch.int32)
+        for i in range(2):
+            lg_cpu, _ = lm.apply_lm_decode(cfg, params, nxt, caches["cpu"], s + i)
+            lg_gpu, _ = lm.apply_lm_decode(cfg, params_gpu, nxt.to(cuda), caches[cuda], s + i)
+            torch.testing.assert_close(lg_gpu.cpu(), lg_cpu, rtol=1e-4, atol=1e-4)
+    t_gpu = lm.greedy_generate(cfg, params_gpu, tok.to(cuda), 4, attn_mask=mask.to(cuda))
+    t_cpu = lm.greedy_generate(cfg, params, tok, 4, attn_mask=mask)
+    assert torch.equal(t_gpu.cpu(), t_cpu)

@@ -5,7 +5,10 @@ Params come from ``repro.models.lm.init_lm`` and cross through
 rtol/atol 1e-4 in fp32 (the two frameworks sum matmuls in different
 orders); greedy tokens agree exactly. granite-moe-1b-a400m runs the MoE
 FFN (capacity-dispatched prefill, no-drop decode): its logits hold the
-same 1e-4, and its tokens are equal.
+same 1e-4, and its tokens are equal. qwen1.5-4b adds QKV bias; gemma3-27b
+sliding-window locals (window 8 at smoke size) on ring caches, which the
+mixed prompts and their decode steps wrap, and one 2048-token prompt
+that takes the flash path.
 """
 import dataclasses
 
@@ -28,9 +31,12 @@ from repro_torch.configs.base import ATTN, LayerSpec
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
 from repro_torch.models import lm
-from repro_torch.serving.engine import pad_prompts, prompt_pad_mask
+from repro_torch.launch.serve import init_router
+from repro_torch.serving.engine import (
+    PoolMember, RoutedEngine, arch_cost_rate, pad_prompts, prompt_pad_mask,
+)
 
-NAMES = ["qwen3-0.6b", "granite-moe-1b-a400m", "granite-3-8b"]
+NAMES = ["qwen3-0.6b", "granite-moe-1b-a400m", "granite-3-8b", "qwen1.5-4b", "gemma3-27b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -43,6 +49,15 @@ def member(request):
     cfg = get_smoke_config(name)
     tparams = bridge.lm_params_from_jax(
         cfg, jax.tree.map(np.asarray, jparams), "cpu")
+    if cfg.qkv_bias:
+        # Seeded nonzero QKV biases in both packages: the reference's zeros
+        # would test nothing. The smoke plan is one pattern entry, repeated.
+        assert len(cfg.pattern) == 1 and not cfg.remainder
+        lm.seed_qkv_biases(tparams, cfg)
+        mixer = jparams["pattern"][0]["mixer"]
+        for key in ("bq", "bk", "bv"):
+            mixer[key] = jnp.asarray(np.stack(
+                [layer["mixer"][key].numpy() for layer in tparams["layers"]]))
     return name, jcfg, jparams, cfg, tparams
 
 
@@ -141,6 +156,11 @@ def test_port_init_matches_reference_layout(name):
     shapes = lambda t: {k: v.shape for k, v in  # noqa: E731
                         flatten_with_paths(t).items()}
     assert shapes(mine) == shapes(ported)
+    # QKV biases start at zero, as in the reference.
+    biases = [leaf for path, leaf in flatten_with_paths(mine).items()
+              if path.rsplit("/", 1)[-1] in ("bq", "bk", "bv")]
+    assert len(biases) == (3 * cfg.n_layers if cfg.qkv_bias else 0)
+    assert not any(b.any() for b in biases)
     # Truncated-normal fan-in weights stay inside ±3σ, σ = 1/sqrt(d_in).
     w = mine["layers"][0]["ffn"]["w_gate"]
     bound = 3.0 / np.sqrt(cfg.d_model)
@@ -177,15 +197,103 @@ def test_rmsnorm_rope_mlp_match_reference():
 
 
 def test_unported_options_raise():
+    """What stays unported raises, naming ROADMAP: the xLSTM and other
+    configs, cross attention, and the mamba and xLSTM mixers."""
     cfg = get_smoke_config("qwen3-0.6b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("gemma3-27b")
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        attn_mod.init_kv_cache(cfg, LayerSpec(mixer=ATTN, window=8), 1, 4, "cpu")
-    for mixer in ("mamba", "mlstm", "slstm"):
+    for name in ("xlstm-1.3b", "jamba-1.5-large-398b", "llama-3.2-vision-90b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_config(name)
+    xattn = LayerSpec(mixer="xattn", ffn="mlp")
+    with pytest.raises(NotImplementedError, match="XATTN.*llama-3.2-vision"):
+        attn_mod.init_kv_cache(cfg, xattn, 1, 4, "cpu")
+    with pytest.raises(NotImplementedError, match="XATTN"):
+        attn_mod.init_attention(torch.Generator(), cfg, xattn)
+    for mixer in ("mamba", "mlstm", "slstm", "xattn"):
         for ffn in ("mlp", "moe"):
             with pytest.raises(NotImplementedError, match=f"{mixer}.*item 6"):
                 lm.init_block(torch.Generator(), cfg, LayerSpec(mixer=mixer, ffn=ffn))
-            with pytest.raises(NotImplementedError, match="item 6"):
-                dataclasses.replace(cfg, pattern=(LayerSpec(mixer=mixer, ffn=ffn),),
-                                    n_layers=2).param_count()
+            if mixer != "xattn":
+                with pytest.raises(NotImplementedError, match="item 6"):
+                    dataclasses.replace(cfg, pattern=(LayerSpec(mixer=mixer, ffn=ffn),),
+                                        n_layers=2).param_count()
+
+
+def test_bridge_orders_a_remainder_after_the_repeats():
+    """gemma3-27b's plan with a remainder (5 local + 1 global, twice, then
+    2 local): the bridge lays the reference's stacked pattern and its
+    remainder out in plan order, each layer's leaves unchanged."""
+    base = jax_get_smoke("gemma3-27b")
+    local, glob = base.pattern[0], base.pattern[2]
+    plan = dict(pattern=(local,) * 5 + (glob,), n_repeats=2, remainder=(local, local),
+                n_layers=14)
+    jcfg = dataclasses.replace(base, **plan)
+    cfg = dataclasses.replace(get_smoke_config("gemma3-27b"), **plan)
+    ref = jax.tree.map(np.asarray, jax_lm.init_lm(jax.random.key(4), jcfg))
+    tparams = bridge.lm_params_from_jax(cfg, ref, "cpu")
+    assert len(tparams["layers"]) == len(cfg.layer_plan()) == 14
+    expect = [jax.tree.map(lambda a, r=r: a[r], ref["pattern"][j])
+              for r in range(2) for j in range(6)] + list(ref["remainder"])
+    for i, (mine, want) in enumerate(zip(tparams["layers"], expect)):
+        mine, want = flatten_with_paths(mine), flatten_with_paths(want)
+        assert mine.keys() == want.keys(), i
+        for path, leaf in want.items():
+            np.testing.assert_array_equal(mine[path].numpy(), leaf, err_msg=f"{i}{path}")
+    caches = lm.init_caches(cfg, 1, 20, "cpu")
+    assert [c["k"].shape[1] for c in caches] == [8] * 5 + [20] + [8] * 5 + [20] + [8, 8]
+
+
+def test_gemma3_2048_token_prompt_takes_flash_and_matches_reference():
+    """One 2048-token gemma3 smoke prompt (flash prefill, window 8 on two
+    of three layers) through both packages: prefill and two decode steps'
+    logits within 1e-4, greedy tokens equal."""
+    name = "gemma3-27b"
+    jcfg, cfg = jax_get_smoke(name), get_smoke_config(name)
+    jparams = jax_lm.init_lm(jax.random.key(3), jcfg)
+    tparams = bridge.lm_params_from_jax(cfg, jax.tree.map(np.asarray, jparams), "cpu")
+    s, n_new = 2048, 3
+    prompt = np.random.default_rng(11).integers(0, cfg.vocab_size, (1, s), dtype=np.int32)
+    jc = jax_lm.init_caches(jcfg, 1, s + n_new)
+    tc = lm.init_caches(cfg, 1, s + n_new, "cpu")
+    jl, jc = jax_lm.apply_lm_prefill(jcfg, jparams, jnp.asarray(prompt), jc)
+    with torch.inference_mode():
+        tl, tc = lm.apply_lm_prefill(cfg, tparams, torch.from_numpy(prompt), tc)
+    for i in range(n_new):
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        jt = np.asarray(jnp.argmax(jl[:, -1, :cfg.vocab_size], axis=-1))
+        tt = torch.argmax(tl[:, -1, :cfg.vocab_size], dim=-1)
+        np.testing.assert_array_equal(tt.numpy(), jt)
+        if i == n_new - 1:
+            break
+        jl, jc = jax_lm.apply_lm_decode(jcfg, jparams, jnp.asarray(jt)[:, None], jc,
+                                        jnp.int32(s + i))
+        with torch.inference_mode():
+            tl, tc = lm.apply_lm_decode(cfg, tparams, tt[:, None], tc, s + i)
+
+
+def test_serving_a_prompt_off_the_flash_chunk_pads_it_and_matches_reference():
+    """``RoutedEngine.serve`` takes a 2500-token prompt, which flash alone
+    refuses (not a multiple of its 1024 chunk): the engine left-pads the
+    batch to 3072, and the served tokens, alone and beside a short prompt,
+    equal the reference's greedy generation of that padded batch."""
+    name = "gemma3-27b"
+    jcfg, cfg = jax_get_smoke(name), get_smoke_config(name)
+    jparams = jax_lm.init_lm(jax.random.key(3), jcfg)
+    tparams = bridge.lm_params_from_jax(cfg, jax.tree.map(np.asarray, jparams), "cpu")
+    engine = RoutedEngine(
+        router=init_router(1, device="cpu"),
+        pool=[PoolMember(name=name, cfg=cfg, params=tparams, cost_rate=arch_cost_rate(cfg))],
+        device="cpu")
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32) for n in (2500, 40)]
+    tok, mask = pad_prompts(prompts), prompt_pad_mask(prompts)
+    assert tok.shape == mask.shape == (2, 3072)
+    with pytest.raises(ValueError, match="multiple of its chunks"):
+        lm.apply_lm_prefill(cfg, tparams, tok[:1, 3072 - 2500:],
+                            lm.init_caches(cfg, 1, 2501, "cpu"))
+    n_new = 3
+    want = np.asarray(jax_lm.greedy_generate(jcfg, jparams, jnp.asarray(tok.numpy()), n_new,
+                                             attn_mask=jnp.asarray(mask.numpy())))
+    batch = engine.serve(["long", "short"], prompts, max_new=n_new)["outputs"]
+    alone = engine.serve(["long"], prompts[:1], max_new=n_new)["outputs"]
+    np.testing.assert_array_equal(np.stack(batch), want)
+    np.testing.assert_array_equal(alone[0], want[0])
