@@ -61,14 +61,34 @@ Phases (any failure raises and exits non-zero before the last line):
      cache against a full cache across the wrap (1e-4); prefill and decode
      step of qwen1.5-4b and gemma3 at S 1536, 2048 and 4096 with the
      device's busy time and the decode step's bytes bound.
- 12. table2: the paper's Table 2 on pool1 (K = 5) with benchmarks/common.py's
+ 12. recurrent: with the attention pool freed, smoke xlstm-1.3b and the
+     jamba hybrid on the card against the CPU at 17 and 600 tokens (xlstm
+     pads 600 to 768; 1e-4); a pool of qwen3-0.6b, xlstm-1.3b at published
+     size (48 layers, sLSTM:mLSTM 1:7) and jamba-1.5-large at published
+     width cut to layers 2-3 of its block (mamba+MLP, attn+MoE), fp32, with its
+     router trained through ``train_engine``; 8 requests served, two of
+     1000 and 40 tokens through ``generate_member`` on xlstm (padded to
+     1024, the mLSTM chunk), and the routing split of the 240 held-out
+     queries through ``router_xattn`` at K = 3 (1e-5 against the plain
+     predictor); xlstm's prompts of 100, 300, 1024 and 2048 tokens as one
+     left-padded batch and each alone (a part excused only at a logit
+     margin of at most 1e-4); one full-width mLSTM layer's chunkwise form
+     against ``mlstm_step`` token by token at S 512 (h 3e-5, C 1e-5; with the
+     init's input-gate bias and with it shifted to 0) and one
+     full-width Mamba layer's chunked scan against its decode step (1e-4);
+     prefill and decode step of xlstm at S 1024 and 2048 and of jamba at S
+     1024, B 1 and 8, with the device's busy time, the decode step's bytes
+     bound (weights, the K/V cache, the recurrent state read and written)
+     and xlstm's sLSTM and mLSTM shares of prefill (one layer of each timed
+     alone, times its count).
+ 13. table2: the paper's Table 2 on pool1 (K = 5) with benchmarks/common.py's
      defaults (4000 queries, 300 epochs): the attention router and the MLP
      trained on the card, KNN (k = 20), SVM, LLM-Blender and the oracle, each
      with AIQ and perf_max over the 25-point lambda grid; the same attention
      quality predictor trained on the CPU from the same initial params must
      agree (losses rtol 1e-3, AIQ 5e-3); ``router_xattn`` on the trained
      params over the 1000 held-out queries (1e-5), timed.
-Each path (serve, moe, trace, lookup, attn_long) runs with every kernel's
+Each path (serve, moe, trace, lookup, attn_long, recurrent) runs with every kernel's
 launch count set to 0 just before it and read just after; a kernel of the
 path that was not launched fails the run. The kernel checks on trained params (train,
 table2) are counted the same way. The second-to-last line is a JSON object
@@ -121,6 +141,19 @@ LONG_PROMPTS = (1020, 1536, 2048, 4096)
 PREFILL_LENGTHS = (1536, 2048, 4096)
 # Served beside each other: 2500 is past FLASH_MIN_SEQ and off its chunk.
 SERVED_LONG = (2500, 40)
+# [recurrent]: xlstm-1.3b at published size and jamba-1.5-large at published
+# width, cut to layers 2-3 of its 8-layer block (mamba+MLP, attn+MoE: a
+# Mamba state beside a KV cache, one MoE FFN, which is what fits the card);
+# the attention pool is freed first.
+RECURRENT_POOL = ["qwen3-0.6b", "xlstm-1.3b", "jamba-1.5-large-398b"]
+XLSTM_MEMBER, JAMBA_MEMBER = RECURRENT_POOL[1:]
+JAMBA_CUT = slice(2, 4)
+# xlstm alone vs batched: 300 pads to 512 alone, the batch to 2048.
+RECURRENT_PROMPTS = (100, 300, 1024, 2048)
+# Served on xlstm beside each other: 1000 is off the mLSTM chunk (pads to 1024).
+SERVED_RECURRENT = (1000, 40)
+RECURRENT_TIMES = ((XLSTM_MEMBER, (1024, 2048)), (JAMBA_MEMBER, (1024,)))
+CHUNK_CHECK_SEQ = 512
 
 
 def log(msg: str) -> None:
@@ -242,22 +275,41 @@ def time_kernel(rx, ref, b, k, d=20, dq=768) -> dict:
             "cluster": pl.cluster, "grid": pl.grid, "smem_bytes": pl.smem}
 
 
-def profile_device(fn, n=1):
+def profile_device(fn, n=1, check_total=False):
     """Device time per call from torch.profiler over ``n`` calls: (busy ms,
     {kernel or copy name: ms}). Busy is the sum over device events; the
-    port runs on one stream, so they do not overlap."""
+    port runs on one stream, so they do not overlap. The events are read
+    from the profiler's raw results (a private attribute): building its
+    Python event tree takes minutes for a prefill of a few hundred thousand
+    launches. ``check_total`` also builds that tree and raises unless its
+    ``key_averages()`` count the same device events, with the same total
+    time to within the microsecond each event is rounded to there."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    by_name = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3 / n
-    return sum(by_name.values()), by_name
+    by_name, n_events = {}, 0
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA:
+            by_name[ev.name()] = by_name.get(ev.name(), 0.0) + ev.duration_ns() / 1e6 / n
+            n_events += 1
+    busy = sum(by_name.values())
+    if check_total:
+        avgs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        n_avg = sum(e.count for e in avgs)
+        key = ("self_device_time_total" if hasattr(avgs[0], "self_device_time_total")
+               else "self_cuda_time_total") if avgs else None
+        total = sum(getattr(e, key) for e in avgs) / 1e3 / n
+        check(n_events > 0 and n_avg == n_events
+              and abs(total - busy) <= 1e-3 * n_events / n,
+              f"profile_device: raw device events {n_events} ({busy:.4f} ms) vs "
+              f"key_averages() {n_avg} ({total:.4f} ms)")
+        log(f"[profile] raw device events {n_events} ({busy:.4f} ms per call) agree with "
+            f"key_averages() ({n_avg} events, {total:.4f} ms)")
+    return busy, by_name
 
 
 def _timed(module, name, record):
@@ -452,14 +504,15 @@ def member_profile(member, tok, mask, tag) -> dict:
         caches = lm.init_caches(cfg, b, s + MAX_NEW, "cuda")
         t_pre, (logits, caches) = _synced(
             lambda: lm.apply_lm_prefill(cfg, member.params, tok, caches, mask))
-        pre_busy, pre_by_name = profile_device(lambda: lm.apply_lm_prefill(
-            cfg, member.params, tok, lm.init_caches(cfg, b, s + MAX_NEW, "cuda"), mask))
         nxt = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
         steps = [_synced(lambda i=i: lm.apply_lm_decode(cfg, member.params, nxt,
                                                         caches, s + i))[0]
                  for i in range(MAX_NEW - 2)]
         busy, by_name = profile_device(lambda: lm.apply_lm_decode(
-            cfg, member.params, nxt, caches, s + MAX_NEW - 2))
+            cfg, member.params, nxt, caches, s + MAX_NEW - 2), check_total=True)
+        del caches, logits             # one set of caches alive at a time
+        pre_busy, pre_by_name = profile_device(lambda: lm.apply_lm_prefill(
+            cfg, member.params, tok, lm.init_caches(cfg, b, s + MAX_NEW, "cuda"), mask))
     step = float(np.median(steps))
     out = {"prefill_ms": t_pre * 1e3, "prefill_busy_ms": pre_busy,
            "prefill_idle": max(0.0, 1 - pre_busy / (t_pre * 1e3)),
@@ -490,9 +543,9 @@ def phase_breakdown(engine, texts, prompts):
     log(f"[breakdown] warm serve wall {wall * 1e3:.2f} ms (median of 3: "
         + ", ".join(f"{w * 1e3:.2f}" for w in walls) + "); featurizer (host) "
         f"{t_embed * 1e3:.3f} ms, scoring {t_score * 1e3:.3f} ms, choose {t_choose * 1e3:.3f} ms")
-    tok, mask = pad_prompts(prompts).cuda(), prompt_pad_mask(prompts).cuda()
     for member in engine.pool:
-        member_profile(member, tok, mask, "breakdown")
+        member_profile(member, pad_prompts(prompts, member.cfg).cuda(),
+                       prompt_pad_mask(prompts, member.cfg).cuda(), "breakdown")
     busy, by_name = profile_device(lambda: engine.serve(texts, prompts, max_new=MAX_NEW))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     log(f"[breakdown] profiled serve: device busy {busy:.2f} ms of a {wall * 1e3:.2f} ms "
@@ -515,7 +568,7 @@ def smoke_card_vs_cpu(name, lengths, tag) -> float:
     params_gpu = tree_map(lambda t: t.cuda(), params_cpu)
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32) for n in lengths]
-    tok, mask = pad_prompts(prompts), prompt_pad_mask(prompts)
+    tok, mask = pad_prompts(prompts, cfg), prompt_pad_mask(prompts, cfg)
     b, s = tok.shape
     e = 0.0
     with torch.inference_mode():
@@ -558,35 +611,46 @@ def phase_reference(engine, texts):
     for member in engine.pool:
         p = [np.arange(1, 17, dtype=np.int32), np.arange(3, 11, dtype=np.int32)]
         with torch.inference_mode():
-            lg, _ = lm.apply_lm_prefill(member.cfg, member.params, pad_prompts(p).cuda(),
+            lg, _ = lm.apply_lm_prefill(member.cfg, member.params, pad_prompts(p, member.cfg).cuda(),
                                         lm.init_caches(member.cfg, 2, 16, "cuda"),
-                                        prompt_pad_mask(p).cuda())
+                                        prompt_pad_mask(p, member.cfg).cuda())
         check(tuple(lg.shape) == (2, 1, member.cfg.padded_vocab), f"{member.name} logits shape")
         check(bool(torch.isfinite(lg).all()), f"{member.name} full-size logits finite")
     log(f"[reference] full-size prefill logits finite, shape (B, 1, padded_vocab), all "
         f"{len(engine.pool)} members")
 
 
-def decode_step_bound(cfg, b, s_kv, experts_read) -> tuple:
+def decode_step_bound(member, b, s_kv, experts_read) -> tuple:
     """Least time on an H100 SXM for one fp32 decode step of ``b`` tokens
-    over ``s_kv`` cached positions: bytes (every weight but the embedding
-    table read once, with ``experts_read`` expert SwiGLUs of the MoE layers in
-    place of all of them; ``b`` table rows; the K/V cache in use, at most
-    the window's positions in a sliding-window layer; the logits written)
-    over HBM bandwidth vs fp32 operations (2 per active weight and token, 4
-    per attended position, head dim and query head) over the CUDA-core peak.
-    Returns (ms, "bytes" | "operations", bytes)."""
+    over ``s_kv`` cached positions: bytes (every weight of the member's
+    params but the embedding table read once, with ``experts_read`` expert
+    SwiGLUs of the MoE layers in place of all of them; ``b`` table rows;
+    the K/V cache in use, at most the window's positions in a
+    sliding-window layer; each recurrent state read and written once; the
+    logits written) over HBM bandwidth vs fp32 operations (2 per weight
+    of those params a token uses, with ``top_k`` experts per MoE layer; 4
+    per attended position, head dim and query head, 4 per state element)
+    over the CUDA-core peak. Returns (ms, "bytes" | "operations", bytes)."""
+    from repro_torch.common.tree import flatten_with_paths
+    from repro_torch.models import lm
+
+    cfg = member.cfg
     d, hd = cfg.d_model, cfg.resolved_head_dim
     table = cfg.padded_vocab * d
     n_moe = sum(1 for spec in cfg.layer_plan() if spec.ffn == "moe")
     expert = 3 * d * cfg.resolved_d_ff_expert
-    weights = cfg.param_count() - table - (n_moe * cfg.n_experts - experts_read) * expert
+    made = sum(t.numel() for t in flatten_with_paths(member.params).values()) - table
+    weights = made - (n_moe * cfg.n_experts - experts_read) * expert
+    active = made - n_moe * (cfg.n_experts - cfg.top_k) * expert
     attended = sum(min(spec.window, s_kv) if spec.window > 0 else s_kv
-                   for spec in cfg.layer_plan())
+                   for spec in cfg.layer_plan() if spec.mixer == "attn")
     kv = 2 * b * attended * cfg.n_kv_heads * hd
-    n_bytes = 4 * (weights + b * d + kv + b * cfg.padded_vocab)
-    ops = (2 * b * (cfg.active_param_count() - table)
-           + 4 * b * attended * cfg.n_heads * hd)
+    state = sum(t.numel() for spec, cache in zip(cfg.layer_plan(),
+                                                 lm.init_caches(cfg, b, 1, "meta"))
+                if spec.mixer != "attn" for t in cache.values())
+    n_bytes = 4 * (weights + b * d + kv + 2 * state + b * cfg.padded_vocab)
+    ops = (2 * b * active
+           + 4 * b * attended * cfg.n_heads * hd + 4 * state)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
     return (max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"),
             n_bytes)
@@ -672,7 +736,7 @@ def phase_moe(engine, rx, pl2) -> dict:
         + (f", from {min(moe_lams):.3g} to {max(moe_lams):.3g}" if moe_lams else ""))
 
     # Times on the device, off the counted path and with the drop log unset.
-    tok, mask = pad_prompts(prompts).cuda(), prompt_pad_mask(prompts).cuda()
+    tok, mask = pad_prompts(prompts, cfg).cuda(), prompt_pad_mask(prompts, cfg).cuda()
     b, s = tok.shape
     prof = member_profile(member, tok, mask, "moe")
 
@@ -708,8 +772,8 @@ def phase_moe(engine, rx, pl2) -> dict:
     log(f"[moe] prefill capacity: {dropped} of {n_real * cfg.top_k * n_moe} real (token, "
         f"expert) assignments dropped over {n_moe} MoE layers ({n_real} real tokens, "
         f"capacity factor {cfg.capacity_factor}, one group per row)")
-    all_ms, by, all_bytes = decode_step_bound(cfg, b, s + 1, n_moe * cfg.n_experts)
-    read_ms, read_by, read_bytes = decode_step_bound(cfg, b, s + 1, sum(chosen))
+    all_ms, by, all_bytes = decode_step_bound(member, b, s + 1, n_moe * cfg.n_experts)
+    read_ms, read_by, read_bytes = decode_step_bound(member, b, s + 1, sum(chosen))
     expert_bytes = 4 * n_moe * cfg.n_experts * 3 * cfg.d_model * cfg.resolved_d_ff_expert
     log(f"[moe] decode step bound (B={b}, {s + 1} cached positions): all {n_moe} x "
         f"{cfg.n_experts} experts {expert_bytes / 1e9:.3f} GB, the step {all_bytes / 1e9:.3f} GB "
@@ -728,8 +792,8 @@ def phase_moe(engine, rx, pl2) -> dict:
         moe._router_probs = lambda params, x: _keep_router_gap(router_probs(params, x),
                                                                cfg.top_k, margins)
         try:
-            alone, alone_gaps = greedy_margins(cfg, member.params, pad_prompts([p]).cuda(),
-                                               prompt_pad_mask([p]).cuda(), MAX_NEW)
+            alone, alone_gaps = greedy_margins(cfg, member.params, pad_prompts([p], cfg).cuda(),
+                                               prompt_pad_mask([p], cfg).cuda(), MAX_NEW)
         finally:
             moe._router_probs = router_probs
         if np.array_equal(alone[0], batch_toks[i]):
@@ -885,7 +949,7 @@ def phase_attn_long(rx, pl2) -> dict:
     rng = np.random.default_rng(19)
     long_prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
                     for n in LONG_PROMPTS]
-    tok, mask = pad_prompts(long_prompts).cuda(), prompt_pad_mask(long_prompts).cuda()
+    tok, mask = pad_prompts(long_prompts, cfg).cuda(), prompt_pad_mask(long_prompts, cfg).cuda()
     torch.cuda.reset_peak_memory_stats()
     t_batch, (batch_toks, batch_gaps) = _synced(
         lambda: greedy_margins(cfg, member.params, tok, mask, MAX_NEW))
@@ -899,7 +963,7 @@ def phase_attn_long(rx, pl2) -> dict:
     parts = []
     for i, p in enumerate(long_prompts):
         t_alone, (alone, alone_gaps) = _synced(lambda p=p: greedy_margins(
-            cfg, member.params, pad_prompts([p]).cuda(), prompt_pad_mask([p]).cuda(), MAX_NEW))
+            cfg, member.params, pad_prompts([p], cfg).cuda(), prompt_pad_mask([p], cfg).cuda(), MAX_NEW))
         n = len(p)
         how = ("flash, band " + _flash_band(n, window) if n >= attn_mod.FLASH_MIN_SEQ
                else "dense") + (", ring tail at prefill" if n >= window else
@@ -988,9 +1052,9 @@ def phase_attn_long(rx, pl2) -> dict:
         rng = np.random.default_rng(29)
         for n in PREFILL_LENGTHS:
             p = [rng.integers(0, m.cfg.vocab_size, size=n, dtype=np.int32)]
-            prof = member_profile(m, pad_prompts(p).cuda(), prompt_pad_mask(p).cuda(),
+            prof = member_profile(m, pad_prompts(p, m.cfg).cuda(), prompt_pad_mask(p, m.cfg).cuda(),
                                   "attn_long")
-            bound_ms, by, n_bytes = decode_step_bound(m.cfg, 1, n + MAX_NEW - 1, 0)
+            bound_ms, by, n_bytes = decode_step_bound(m, 1, n + MAX_NEW - 1, 0)
             log(f"[attn_long] {name} S={n} decode step bound {n_bytes / 1e9:.3f} GB -> "
                 f"{bound_ms:.4f} ms ({by}); device busy {prof['decode_busy_ms']:.2f} ms "
                 f"(bound / busy {bound_ms / prof['decode_busy_ms']:.3f})")
@@ -998,6 +1062,308 @@ def phase_attn_long(rx, pl2) -> dict:
                                       "decode_bound_by": by}
     del engine, pool
     return {"launches": launches, "max_abs_err": errs, "times": times}
+
+
+def build_recurrent_pool():
+    """qwen3-0.6b and xlstm-1.3b at published size, and jamba-1.5-large at
+    published width cut in depth to the ``JAMBA_CUT`` layers of its 8-layer
+    block (mamba+MLP, attn+MoE), fp32, on the card; seeds and the published
+    configs' cost rates as ``build_pool`` gives them."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_pool
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import PoolMember, arch_cost_rate
+
+    pool = build_pool(RECURRENT_POOL[:-1], seed=0, device="cuda")
+    full = get_config(JAMBA_MEMBER)
+    pattern = full.pattern[JAMBA_CUT]
+    cfg = dataclasses.replace(full, n_layers=len(pattern), pattern=pattern, n_repeats=1)
+    gen = torch.Generator(device="cuda").manual_seed(len(pool))
+    pool.append(PoolMember(name=JAMBA_MEMBER, cfg=cfg, params=lm.init_lm(gen, cfg),
+                           cost_rate=arch_cost_rate(full)))
+    return pool
+
+
+def _decode_experts(member, tok, mask) -> int:
+    """The experts one decode step's tokens choose, summed over the MoE
+    layers (0 without MoE)."""
+    from repro_torch.models import lm, moe
+
+    cfg = member.cfg
+    if not cfg.n_experts:
+        return 0
+    chosen, router_probs = [], moe._router_probs
+
+    def choosing(p, x):
+        probs = router_probs(p, x)
+        chosen.append(torch.topk(probs, cfg.top_k, dim=-1).indices.unique().numel())
+        return probs
+
+    b, s = tok.shape
+    with torch.inference_mode():
+        caches = lm.init_caches(cfg, b, s + 1, "cuda")
+        logits, caches = lm.apply_lm_prefill(cfg, member.params, tok, caches, mask)
+        nxt = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
+        moe._router_probs = choosing
+        try:
+            lm.apply_lm_decode(cfg, member.params, nxt, caches, s)
+        finally:
+            moe._router_probs = router_probs
+    return int(sum(chosen))
+
+
+def phase_recurrent(rx, pl2) -> dict:
+    """Recurrent generation: smoke xlstm-1.3b and jamba card vs CPU; the
+    recurrent pool with its trained router serving and routing through
+    router_xattn; xlstm's prompts alone and batched; one full-width mLSTM
+    layer's chunkwise form against its step recurrence and one full-width
+    Mamba layer's chunked scan against its decode step; prefill and decode
+    times of both recurrent members with their decode bounds."""
+    from repro_torch.common.tree import flatten_with_paths
+    from repro_torch.core import DEFAULT_LAMBDA_GRID
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import ssm, xlstm
+    from repro_torch.serving.engine import pad_prompts, prompt_pad_mask
+
+    t_phase = time.perf_counter()
+    for name in (XLSTM_MEMBER, JAMBA_MEMBER):
+        for lengths in ((5, 17, 9), (600,)):
+            smoke_card_vs_cpu(name, lengths, "recurrent")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pool = build_recurrent_pool()
+    torch.cuda.synchronize()
+    t_pool = time.perf_counter() - t0
+    for m in pool:
+        n = sum(p.numel() for p in flatten_with_paths(m.params).values())
+        mixers = {spec.mixer for spec in m.cfg.layer_plan()}
+        log(f"[recurrent] {m.name}: {m.cfg.n_layers} layers d_model={m.cfg.d_model}, "
+            f"mixers {sorted(mixers)}, ffns {sorted({sp.ffn for sp in m.cfg.layer_plan()})}; "
+            f"{n / 1e9:.4f}B params ({4 * n / 2**30:.2f} GiB) fp32 (counted for $: "
+            f"{m.cfg.param_count() / 1e9:.4f}B); $ {m.cost_rate:.6g} per request")
+    log(f"[recurrent] pool built in {t_pool:.2f}s; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak")
+    t0 = time.perf_counter()
+    engine = serve_mod.train_engine(pool, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[recurrent] router trained on the card through train_engine in "
+        f"{time.perf_counter() - t0:.2f}s (K = {engine.router.n_members}; "
+        f"{time.perf_counter() - t_phase:.1f}s into the phase)")
+
+    # The path: serve 8 requests, two long ones on xlstm, the routing split.
+    names = [m.name for m in engine.pool]
+    x_idx = names.index(XLSTM_MEMBER)
+    data, _, _ = serve_mod.synthetic_pool_traffic(engine.pool, seed=0)
+    _, _, te = data.split(seed=0)
+    vocab = min(m.cfg.vocab_size for m in engine.pool)
+    texts, prompts = serve_mod.synthetic_requests(N_REQUESTS, vocab, seed=0)
+    rng = np.random.default_rng(31)
+    long_pair = [rng.integers(0, vocab, size=n, dtype=np.int32) for n in SERVED_RECURRENT]
+    rx.router_xattn_cuda.launches = 0
+    pl2.pairwise_l2_cuda.launches = 0
+    t_serve, res = _synced(lambda: engine.serve(texts, prompts, max_new=MAX_NEW))
+    t_long, (long_outs, long_costs) = _synced(
+        lambda: engine.generate_member(x_idx, long_pair, max_new=MAX_NEW))
+    s_hat, c_hat = engine.score_emb(data.emb[te])
+    torch.cuda.synchronize()
+    launches = {"router_xattn": rx.router_xattn_cuda.launches,
+                "pairwise_l2": pl2.pairwise_l2_cuda.launches}
+    check(launches["router_xattn"] == 2, f"the serve and the routing split launched "
+                                         f"router_xattn {launches['router_xattn']} times, not 2")
+    for i, out in enumerate(res["outputs"]):
+        member = engine.pool[int(res["choices"][i])]
+        check(len(out) == MAX_NEW and 0 <= int(out.min())
+              and int(out.max()) < member.cfg.vocab_size,
+              f"[recurrent] request {i}: {len(out)} tokens in {member.name}'s vocab")
+    check(all(len(o) == MAX_NEW and 0 <= int(o.min()) and int(o.max()) < vocab
+              for o in long_outs), "the long pair's tokens on xlstm")
+    s_plain, c_plain = engine.router.predict(data.emb[te])
+    e_route = float(np.abs(s_hat - s_plain).max())
+    check(np.allclose(s_hat, s_plain, rtol=1e-5, atol=1e-5),
+          f"router_xattn K={len(names)} on the recurrent pool's router, max |err| {e_route:.3g}")
+    check(np.array_equal(c_hat, c_plain), "cost path identical on both scoring paths")
+    log(f"[recurrent] engine.serve: {N_REQUESTS} requests, prompts "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens, max_new={MAX_NEW}, wall "
+        f"{t_serve:.3f}s; per-member counts " + ", ".join(
+            f"{n}={int(c)}" for n, c in zip(names, res["per_member_counts"]))
+        + f"; total $ {res['total_cost']:.6g}")
+    s_long = pad_prompts(long_pair, engine.pool[x_idx].cfg).shape[1]
+    log(f"[recurrent] generate_member {XLSTM_MEMBER}, prompts of "
+        f"{'/'.join(map(str, SERVED_RECURRENT))} tokens (padded to S {s_long}, the mLSTM "
+        f"chunk): wall {t_long:.3f}s, $ {long_costs.sum():.6g}; tokens in vocab")
+    log(f"[recurrent] router_xattn K={len(names)} B={len(te)} on the trained params: max "
+        f"|err| {e_route:.3g} vs the plain predictor (tol 1e-5); launches on the path: "
+        f"router_xattn {launches['router_xattn']} (serve 1, split 1), pairwise_l2 "
+        f"{launches['pairwise_l2']}")
+    rows = [(lam, np.bincount(engine.choose(s_hat, c_hat, lam), minlength=len(names)))
+            for lam in DEFAULT_LAMBDA_GRID]
+    log(f"[recurrent] routing split of the {len(te)} held-out queries, counts "
+        f"{'/'.join(names)} per lambda:")
+    for i in range(0, len(rows), 5):
+        log("[recurrent]   " + "; ".join(f"{lam:.3g}: " + "/".join(str(int(c)) for c in counts)
+                                         for lam, counts in rows[i:i + 5]))
+
+    # xlstm's prompts as one left-padded batch, then each alone.
+    member = engine.pool[x_idx]
+    cfg = member.cfg
+    rng = np.random.default_rng(37)
+    rec_prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+                   for n in RECURRENT_PROMPTS]
+    tok, mask = (pad_prompts(rec_prompts, cfg).cuda(),
+                 prompt_pad_mask(rec_prompts, cfg).cuda())
+    torch.cuda.reset_peak_memory_stats()
+    t_batch, (batch_toks, batch_gaps) = _synced(
+        lambda: greedy_margins(cfg, member.params, tok, mask, MAX_NEW))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(batch_toks.shape == (len(rec_prompts), MAX_NEW) and 0 <= batch_toks.min()
+          and batch_toks.max() < cfg.vocab_size, "xlstm batch tokens in vocab")
+    log(f"[recurrent] {XLSTM_MEMBER} prompts {list(RECURRENT_PROMPTS)} as one left-padded "
+        f"batch (S {tok.shape[1]}): {t_batch:.3f}s for {MAX_NEW} tokens each; device memory "
+        f"peak {peak:.2f} GiB")
+    parts = []
+    for i, p in enumerate(rec_prompts):
+        ptok = pad_prompts([p], cfg)
+        t_alone, (alone, alone_gaps) = _synced(lambda p=p, ptok=ptok: greedy_margins(
+            cfg, member.params, ptok.cuda(), prompt_pad_mask([p], cfg).cuda(), MAX_NEW))
+        same = np.array_equal(alone[0], batch_toks[i])
+        log(f"[recurrent]   {len(p)} tokens alone (S {ptok.shape[1]}): {t_alone:.3f}s, "
+            + ("equal to its batch tokens" if same else "parts from its batch tokens"))
+        if same:
+            continue
+        j = int(np.flatnonzero(alone[0] != batch_toks[i])[0])
+        gap = float(min(alone_gaps[0, j], batch_gaps[i, j]))
+        parts.append(i)
+        log(f"[recurrent]   request {i} alone parts from the batch at token {j}: logit "
+            f"margin {gap:.3g}")
+        check(gap <= 1e-4, f"{len(p)}-token request alone parts from the batch at token {j} "
+                           f"with logit margin {gap:.3g} above 1e-4")
+    log(f"[recurrent] each xlstm request alone vs in the batch ({time.perf_counter() - t_phase:.1f}s "
+        f"into the phase): "
+        f"{len(rec_prompts) - len(parts)} of {len(rec_prompts)} equal"
+        + (f"; parts at near ties: requests {parts}" if parts else ""))
+
+    # One full-width mLSTM layer: chunkwise vs the step recurrence; one
+    # full-width Mamba layer: chunked scan vs its decode step.
+    errs = {}
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    with torch.inference_mode():
+        li = next(i for i, sp in enumerate(cfg.layer_plan()) if sp.mixer == "mlstm")
+        p = member.params["layers"][li]["mixer"]
+        x = torch.randn((1, CHUNK_CHECK_SEQ, cfg.d_model), generator=gen, device="cuda")
+        xc, xv, _, _ = xlstm._mlstm_front(p, x)
+        q, k, v = xlstm._mlstm_qkv(cfg, p, xc, xv)
+        log_i, log_f = xlstm._mlstm_gates(p, xc)
+        # The init's input-gate bias -10 makes h small (about 1e-5), so the
+        # gates are also shifted to a bias of 0, where h is of order 0.1.
+        for shift in (0.0, 10.0):
+            li_s = log_i + shift
+            t_chunk, (h_chunk, final) = _synced(
+                lambda: xlstm.mlstm_chunkwise(q, k, v, li_s, log_f))
+            state = xlstm.init_mlstm_cache(cfg, 1, "cuda")
+            hs = []
+            t0 = time.perf_counter()
+            for t in range(CHUNK_CHECK_SEQ):
+                h_t, state = xlstm.mlstm_step(q[:, t], k[:, t], v[:, t], li_s[:, t],
+                                              log_f[:, t], state)
+                hs.append(h_t)
+            torch.cuda.synchronize()
+            t_step = time.perf_counter() - t0
+            e_h = float((torch.stack(hs, 1) - h_chunk).abs().max())
+            e_c = float((state["C"] - final["C"]).abs().max())
+            h_max, c_max = float(h_chunk.abs().max()), float(final["C"].abs().max())
+            check(e_h <= 3e-5 and e_c <= 1e-5,
+                  f"full-width mLSTM layer {li} chunkwise vs step at S {CHUNK_CHECK_SEQ}, "
+                  f"input-gate bias shifted by {shift:g}: h {e_h:.3g} (tol 3e-5), C "
+                  f"{e_c:.3g} (tol 1e-5)")
+            errs[f"mlstm chunkwise vs step, gate shift {shift:g}, h"] = e_h
+            errs[f"mlstm chunkwise vs step, gate shift {shift:g}, C"] = e_c
+            log(f"[recurrent] full-width {XLSTM_MEMBER} mLSTM layer {li} (4 heads of "
+                f"{cfg.xlstm_d_inner // cfg.xlstm_n_heads}), input-gate bias shifted by "
+                f"{shift:g}, S {CHUNK_CHECK_SEQ} (chunks of {xlstm.MLSTM_CHUNK}): chunkwise vs "
+                f"mlstm_step token by token max |err| h {e_h:.3g} (tol 3e-5, |h| up to "
+                f"{h_max:.3g}), C {e_c:.3g} (tol 1e-5, |C| up to {c_max:.3g}); chunkwise {t_chunk * 1e3:.2f} ms, "
+                f"{CHUNK_CHECK_SEQ} steps {t_step * 1e3:.2f} ms (host clock)")
+        jamba = engine.pool[names.index(JAMBA_MEMBER)]
+        jcfg = jamba.cfg
+        p = jamba.params["layers"][0]["mixer"]
+        x = torch.randn((1, CHUNK_CHECK_SEQ, jcfg.d_model), generator=gen, device="cuda")
+        t_scan, (out, final) = _synced(lambda: ssm.apply_mamba_prefill(jcfg, p, x))
+        cache = ssm.init_mamba_cache(jcfg, 1, "cuda")
+        steps = [ssm.apply_mamba_decode(jcfg, p, x[:, t:t + 1], cache)[0]
+                 for t in range(CHUNK_CHECK_SEQ)]
+        e_y = float((torch.cat(steps, 1) - out).abs().max())
+        e_s = float((cache["h"] - final["h"]).abs().max())
+        check(torch.allclose(torch.cat(steps, 1), out, rtol=1e-4, atol=1e-4)
+              and torch.allclose(cache["h"], final["h"], rtol=1e-4, atol=1e-4),
+              f"full-width Mamba layer chunked scan vs step: out {e_y:.3g}, h {e_s:.3g} "
+              f"(tol 1e-4)")
+        errs["mamba scan vs step, out"], errs["mamba scan vs step, h"] = e_y, e_s
+        log(f"[recurrent] full-width {JAMBA_MEMBER} Mamba layer 0 (d_inner "
+            f"{jcfg.ssm_d_inner}, d_state {jcfg.ssm_d_state}), S {CHUNK_CHECK_SEQ} (chunks of "
+            f"{ssm.SSM_CHUNK}): chunked scan vs the decode step token by token max |err| out "
+            f"{e_y:.3g}, state {e_s:.3g} (tol 1e-4); scan {t_scan * 1e3:.2f} ms (host clock)")
+        del out, final, cache, steps, hs, state, h_chunk
+
+    # Prefill and decode times of the recurrent members, against the decode bound.
+    times = {}
+    for name, lengths in RECURRENT_TIMES:
+        m = engine.pool[names.index(name)]
+        rng = np.random.default_rng(43)
+        for n in lengths:
+            for b in (1, 8):
+                t0 = time.perf_counter()
+                p = [rng.integers(0, m.cfg.vocab_size, size=n, dtype=np.int32)
+                     for _ in range(b)]
+                tok, mask = pad_prompts(p, m.cfg).cuda(), prompt_pad_mask(p, m.cfg).cuda()
+                prof = member_profile(m, tok, mask, "recurrent")
+                shares = {}
+                if name == XLSTM_MEMBER and n == lengths[0]:
+                    shares = mixer_shares(m, tok, mask)
+                bound_ms, by, n_bytes = decode_step_bound(
+                    m, b, tok.shape[1] + MAX_NEW - 1, _decode_experts(m, tok, mask))
+                log(f"[recurrent] {name} B={b} S={tok.shape[1]} decode step bound {n_bytes / 1e9:.3f} GB "
+                    f"-> {bound_ms:.4f} ms ({by}); device busy {prof['decode_busy_ms']:.2f} ms "
+                    f"(bound / busy {bound_ms / prof['decode_busy_ms']:.3f})"
+                    + "".join(f"; {k} {v:.3f} of prefill" for k, v in shares.items())
+                    + f"; measured in {time.perf_counter() - t0:.1f}s")
+                times[f"{name} B={b} S={n}"] = {**prof, "decode_bound_ms": bound_ms,
+                                                "decode_bound_by": by, **shares}
+    log(f"[recurrent] device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated, {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak since the "
+        f"batch of long prompts")
+    del engine, pool
+    return {"launches": launches, "max_abs_err": errs, "times": times}
+
+
+def mixer_shares(member, tok, mask) -> dict:
+    """Host-clock share of one prefill of ``tok`` taken by the sLSTM and the
+    mLSTM mixers: each kind's first layer run alone on a unit-normal input
+    of the prompt's shape (its time does not depend on the values), times
+    the number of layers of that kind, over the whole prefill's time. Each
+    time is the least of three runs ending in a device sync: the host's
+    clock spreads by tens of percent between runs on a shared machine."""
+    from repro_torch.models import lm, xlstm
+
+    cfg, plan = member.cfg, member.cfg.layer_plan()
+    b, s = tok.shape
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    shares = {}
+    with torch.inference_mode():
+        t_all = min(_synced(lambda: lm.apply_lm_prefill(
+            cfg, member.params, tok, lm.init_caches(cfg, b, s + 1, "cuda"), mask))[0]
+                    for _ in range(3))
+        x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda")
+        for kind, fn in (("slstm", xlstm.apply_slstm_prefill),
+                         ("mlstm", xlstm.apply_mlstm_prefill)):
+            layers = [i for i, spec in enumerate(plan) if spec.mixer == kind]
+            p = member.params["layers"][layers[0]]["mixer"]
+            t_one = min(_synced(lambda: fn(cfg, p, x, mask=mask))[0] for _ in range(3))
+            shares[f"{kind} share"] = len(layers) * t_one / t_all
+    return shares
 
 
 def pairwise_l2_bound(n, k, d) -> tuple:
@@ -1505,6 +1871,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[attn_long] phase wall {time.perf_counter() - t0:.2f}s")
 
+    left = torch.cuda.memory_allocated() / 2**30
+    check(left < 1.0, f"{left:.2f} GiB still allocated after the attention pool was freed")
+    log(f"[recurrent] attention pool freed: {left:.2f} GiB allocated")
+    t0 = time.perf_counter()
+    recurrent = phase_recurrent(rx, pl2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[recurrent] phase wall {time.perf_counter() - t0:.2f}s")
+
     t0 = time.perf_counter()
     table2 = phase_table2(rx, ref)
     log(f"[table2] phase wall {time.perf_counter() - t0:.2f}s")
@@ -1521,7 +1896,8 @@ def main() -> int:
                              "moe": moe_run["launches"]["router_xattn"],
                              "trace": trace["launches"]["router_xattn"],
                              "train": train["launches"], "table2": table2["launches"],
-                             "attn_long": attn_long["launches"]["router_xattn"]},
+                             "attn_long": attn_long["launches"]["router_xattn"],
+                             "recurrent": recurrent["launches"]["router_xattn"]},
         "max_abs_err_trained": {"train": train["max_abs_err"],
                                 "table2": table2["timing"]["max_abs_err"]},
         "max_abs_err": err["float32"], "max_abs_err_bf16": err["bfloat16"],
@@ -1537,7 +1913,8 @@ def main() -> int:
                              "moe": moe_run["launches"]["pairwise_l2"],
                              "trace": trace["launches"]["pairwise_l2"],
                              "lookup": lookup["launches"],
-                             "attn_long": attn_long["launches"]["pairwise_l2"]},
+                             "attn_long": attn_long["launches"]["pairwise_l2"],
+                             "recurrent": recurrent["launches"]["pairwise_l2"]},
         "max_abs_err": pl2_err["float32"], "max_abs_err_bf16": pl2_err["bfloat16"],
         **window,
         "library_call": "torch.cdist(x, c).square(), a yardstick: cdist takes a "

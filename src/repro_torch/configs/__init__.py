@@ -3,8 +3,9 @@
 ``get_config(name)`` returns the full published config; ``get_smoke_config``
 the reduced same-family variant the CPU tests use. Ported so far: the
 reference's default serve pool (qwen3-0.6b, granite-3-8b and the
-mixture-of-experts granite-moe-1b-a400m), qwen1.5-4b (QKV bias) and
-gemma3-27b (sliding-window locals). The reference's other five
+mixture-of-experts granite-moe-1b-a400m), qwen1.5-4b (QKV bias),
+gemma3-27b (sliding-window locals), xlstm-1.3b (sLSTM and mLSTM) and
+the jamba hybrid (Mamba, attention and MoE). The reference's other three
 architectures wait in ROADMAP.md's Queue 1 (item 6) and raise
 ``NotImplementedError`` here.
 """
@@ -16,7 +17,8 @@ from typing import Dict, List
 from repro_torch.configs.base import ArchConfig
 
 ARCH_IDS: List[str] = ["qwen3-0.6b", "granite-moe-1b-a400m", "granite-3-8b",
-                       "qwen1.5-4b", "gemma3-27b"]
+                       "qwen1.5-4b", "gemma3-27b", "xlstm-1.3b",
+                       "jamba-1.5-large-398b"]
 
 _MODULES: Dict[str, str] = {
     "qwen3-0.6b": "qwen3_0_6b",
@@ -24,6 +26,8 @@ _MODULES: Dict[str, str] = {
     "granite-3-8b": "granite_3_8b",
     "qwen1.5-4b": "qwen1_5_4b",
     "gemma3-27b": "gemma3_27b",
+    "xlstm-1.3b": "xlstm_1_3b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
 

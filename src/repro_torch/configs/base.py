@@ -7,13 +7,15 @@ port runs the plan as a plain loop over layers.
 
 :meth:`ArchConfig.param_count` counts as the reference does: the serving
 engine's $ cost rates derive from it, so both packages must price every
-member the same. Only the fields the dense attention members use are
-here, with the MoE fields of the FFN family ported so far; the SSM, xLSTM
-and modality fields come with their mixers.
+member the same: the port copies the count term for term, also where it
+differs from the reference's own init (ROADMAP.md Queue 3). The
+attention, MoE, Mamba and xLSTM fields are here; the modality fields
+come with cross attention.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 
@@ -78,6 +80,16 @@ class ArchConfig:
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
 
+    # Mamba options.
+    ssm_d_state: int = 16
+    ssm_d_conv: int = 4
+    ssm_expand: int = 2
+    ssm_dt_rank: int = 0               # 0 -> ceil(d_model / 16)
+
+    # xLSTM options.
+    xlstm_expand: int = 2              # mLSTM up-projection factor
+    xlstm_ff_factor: float = 2.6667    # sLSTM post-FFN factor (~4/3 * 2)
+
     # Layer plan.
     pattern: Tuple[LayerSpec, ...] = (LayerSpec(),)
     n_repeats: int = 1
@@ -105,9 +117,29 @@ class ArchConfig:
         """Vocab rounded up to a multiple of 256 (the reference's layout)."""
         return round_up(self.vocab_size, 256)
 
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def resolved_dt_rank(self) -> int:
+        return self.ssm_dt_rank or max(1, math.ceil(self.d_model / 16))
+
+    @property
+    def xlstm_d_inner(self) -> int:
+        return self.xlstm_expand * self.d_model
+
+    @property
+    def xlstm_n_heads(self) -> int:
+        # xLSTM-1.3B uses 4 heads; reduced smoke variants keep >=1.
+        return max(1, min(self.n_kv_heads or 4, self.xlstm_expand * 2))
+
     def layer_plan(self) -> Tuple[LayerSpec, ...]:
         """The full, flat sequence of layer specs (pattern*n + remainder)."""
         return tuple(self.pattern) * self.n_repeats + tuple(self.remainder)
+
+    def has_mixer(self, kind: str) -> bool:
+        return any(s.mixer == kind for s in self.layer_plan())
 
     def has_ffn(self, kind: str) -> bool:
         return any(s.ffn == kind for s in self.layer_plan())
@@ -119,22 +151,48 @@ class ArchConfig:
     # ---- parameter count (for the cost model) -------------------------------
 
     def param_count(self) -> int:
-        """Analytic parameter count of the full model (attention mixers with
-        an MLP or MoE FFN; the reference's other mixers are not ported yet)."""
+        """Analytic parameter count of the full model, the reference's term
+        for term. Where it and the init differ, the count wins (the $ rates
+        derive from it): the sLSTM FFN counts ``int(2·d·d·ff_factor)``, not
+        the init's width rounded up to 256; the mLSTM term leaves out the
+        conv, skip and gate biases; an FFN-less block still counts ``2·d``
+        of norms."""
         d, hd = self.d_model, self.resolved_head_dim
         total = self.padded_vocab * d          # embedding table
         total += self.padded_vocab * d         # separate lm head
         for spec in self.layer_plan():
-            if spec.mixer != ATTN or spec.ffn not in (MLP, MOE):
+            if spec.mixer == XATTN:
                 raise NotImplementedError(
-                    f"{self.name}: {spec.mixer}+{spec.ffn} blocks are not ported "
-                    "yet (ROADMAP.md Queue 1, item 6)")
+                    f"{self.name}: xattn blocks are not ported yet "
+                    "(ROADMAP.md Queue 1, item 6)")
             total += 2 * d                     # pre-mixer + pre-ffn norms
-            total += d * self.n_heads * hd     # q
-            total += 2 * d * self.n_kv_heads * hd  # k, v
-            total += self.n_heads * hd * d     # o
-            if self.qkv_bias:
-                total += (self.n_heads + 2 * self.n_kv_heads) * hd
+            if spec.mixer == ATTN:
+                total += d * self.n_heads * hd     # q
+                total += 2 * d * self.n_kv_heads * hd  # k, v
+                total += self.n_heads * hd * d     # o
+                if self.qkv_bias:
+                    total += (self.n_heads + 2 * self.n_kv_heads) * hd
+            elif spec.mixer == MAMBA:
+                di, ds, dtr = self.ssm_d_inner, self.ssm_d_state, self.resolved_dt_rank
+                total += d * 2 * di            # in_proj (x, z)
+                total += di * self.ssm_d_conv  # depthwise conv
+                total += di * (dtr + 2 * ds)   # x_proj
+                total += dtr * di + di         # dt_proj, dt_bias
+                total += di * ds + di          # A_log, D
+                total += di * d                # out_proj
+            elif spec.mixer == MLSTM:
+                di, nh = self.xlstm_d_inner, self.xlstm_n_heads
+                total += d * 2 * di            # up projection (x, z)
+                total += 3 * di * (di // nh)   # block-diagonal q, k, v
+                total += 2 * di * nh           # i, f gate projections
+                total += di * d                # down projection
+            elif spec.mixer == SLSTM:
+                nh = self.xlstm_n_heads
+                hd_s = d // nh
+                total += 4 * d * d             # W_{z,i,f,o}
+                total += 4 * nh * hd_s * hd_s  # block-diagonal recurrent R
+                total += 4 * d                 # biases
+                total += int(2 * d * d * self.xlstm_ff_factor)  # gated FFN
             if spec.ffn == MLP and self.d_ff:
                 total += 3 * d * self.d_ff     # gate, up, down (SwiGLU)
             elif spec.ffn == MOE:

@@ -5,6 +5,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --pool qwen3-0.6b,qwen1.5-4b,gemma3-27b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
+        --pool qwen3-0.6b,xlstm-1.3b,jamba-1.5-large-398b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
         --trace neardup --semcache --requests 200
 
 builds the pool members at their published widths and depths on the CUDA

@@ -18,11 +18,13 @@ import torch.nn.functional as F
 # ---------------------------------------------------------------------------
 
 
-def dense_init(gen: torch.Generator, d_in: int, d_out: int) -> torch.Tensor:
-    """Truncated-normal (±3σ) fan-in init, shape (d_in, d_out)."""
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               scale: float = 1.0) -> torch.Tensor:
+    """Truncated-normal (±3σ) fan-in init, σ = scale / sqrt(d_in), shape
+    (d_in, d_out)."""
     w = torch.empty((d_in, d_out), dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=gen)
-    return w.mul_(1.0 / math.sqrt(d_in))
+    return w.mul_(scale / math.sqrt(d_in))
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int) -> torch.Tensor:
@@ -83,6 +85,34 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int) -> Dict:
 def apply_mlp(params: Dict, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     return h @ params["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Depthwise causal conv (the Mamba and mLSTM fronts)
+# ---------------------------------------------------------------------------
+
+def causal_conv(p: Dict, xi: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv of ``p["conv_w"]`` (dc, C) along time over xi
+    (B, S, C), as a sum of shifted products with ``dc - 1`` zeros in front,
+    as the reference writes it (``F.conv1d`` would take cuDNN's TF32 default)."""
+    dc = p["conv_w"].shape[0]
+    xp = F.pad(xi, (0, 0, dc - 1, 0))
+    s = xi.shape[1]
+    return sum(xp[:, i:i + s] * p["conv_w"][i] for i in range(dc))
+
+
+def conv_step(p: Dict, window: torch.Tensor) -> torch.Tensor:
+    """The conv at one position: window (B, dc, C) of the last dc inputs ->
+    (B, 1, C)."""
+    return (window * p["conv_w"]).sum(dim=1, keepdim=True)
+
+
+def conv_tail(xi: torch.Tensor, dc: int) -> torch.Tensor:
+    """The last ``dc - 1`` conv inputs of xi (B, S, C), zeros in front of a
+    shorter prompt: the decode conv's starting window. A copy, not a view:
+    a decode cache that held a view of xi would keep all of it alive."""
+    s = xi.shape[1]
+    return xi[:, s - (dc - 1):].clone() if s >= dc - 1 else F.pad(xi, (0, 0, dc - 1 - s, 0))
 
 
 # ---------------------------------------------------------------------------

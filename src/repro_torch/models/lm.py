@@ -1,44 +1,84 @@
-"""Decoder LM over a layer plan of attention blocks with a SwiGLU MLP or an
-MoE FFN.
+"""Decoder LM over a layer plan of attention, Mamba, mLSTM and sLSTM blocks,
+each with a SwiGLU MLP, an MoE FFN or none.
 
-The port of ``repro.models.lm`` for its attention members: the reference's
-default serve pool (qwen3-0.6b, granite-3-8b and the mixture-of-experts
-granite-moe), qwen1.5-4b (QKV bias) and gemma3-27b (5:1 local:global,
-sliding-window locals on a ring cache). The reference stacks the repeated
-``pattern``'s parameters on a leading ``n_repeats`` axis, with the
-``remainder`` apart, and scans over it; here the plan is a plain loop over
+The port of ``repro.models.lm`` for the pool members ported so far: the
+reference's default serve pool (qwen3-0.6b, granite-3-8b and the
+mixture-of-experts granite-moe), qwen1.5-4b (QKV bias), gemma3-27b (5:1
+local:global, sliding-window locals on a ring cache), xlstm-1.3b (sLSTM
+and mLSTM blocks without an FFN) and the jamba hybrid (Mamba and
+attention, MLP and MoE). The reference stacks the repeated ``pattern``'s
+parameters on a leading ``n_repeats`` axis, with the ``remainder`` apart,
+and scans over it; here the plan is a plain loop over
 ``params["layers"]``, one parameter dict per layer in
 :meth:`ArchConfig.layer_plan` order (:mod:`repro_torch.bridge` unstacks
 the reference's tree into this layout). Each layer's decode cache is made
 for its spec: a ring of ``min(window, max_len)`` slots for a windowed
-layer, a linear cache otherwise.
+attention layer, a linear KV cache for another attention layer, the
+recurrent state for a Mamba, mLSTM or sLSTM layer. Cross attention
+(XATTN) is not ported yet and is refused.
 
 Entry points:
   * prefill: full prompt -> last-position logits + decode caches (dense
-    attention below 2048 tokens, banded flash attention from there)
+    attention below 2048 tokens, banded flash attention from there; the
+    chunkwise mLSTM, the sequential sLSTM and the chunked Mamba scan)
   * decode:  one token + caches -> logits (caches updated in place)
   * greedy_generate: prefill, then ``max_new - 1`` decode steps
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ATTN, MLP, MOE, ArchConfig, LayerSpec
+from repro_torch.configs.base import (
+    ATTN, MAMBA, MLP, MLSTM, MOE, NONE, SLSTM, ArchConfig, LayerSpec,
+)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (
     apply_mlp, apply_rmsnorm, embed_tokens, init_embedding, init_mlp,
     init_rmsnorm, lm_logits,
 )
 
+class _Recurrent(NamedTuple):
+    """A recurrent mixer's functions; its decode cache is its state."""
+    init: Callable
+    init_cache: Callable
+    prefill: Callable
+    decode: Callable
+
+
+_RECURRENT = {
+    MAMBA: _Recurrent(ssm_mod.init_mamba, ssm_mod.init_mamba_cache,
+                      ssm_mod.apply_mamba_prefill, ssm_mod.apply_mamba_decode),
+    MLSTM: _Recurrent(xlstm_mod.init_mlstm, xlstm_mod.init_mlstm_cache,
+                      xlstm_mod.apply_mlstm_prefill, xlstm_mod.apply_mlstm_decode),
+    SLSTM: _Recurrent(xlstm_mod.init_slstm, xlstm_mod.init_slstm_cache,
+                      xlstm_mod.apply_slstm_prefill, xlstm_mod.apply_slstm_decode),
+}
+
 
 def _check_block(spec: LayerSpec) -> None:
-    if spec.mixer != ATTN or spec.ffn not in (MLP, MOE):
+    if spec.mixer != ATTN and spec.mixer not in _RECURRENT:
         raise NotImplementedError(
-            f"block {spec.mixer}+{spec.ffn} is not ported yet; the port runs "
-            "attention blocks with an MLP or MoE FFN (ROADMAP.md Queue 1, item 6)")
+            f"block {spec.mixer}+{spec.ffn} is not ported yet; cross attention "
+            "comes with llama-3.2-vision (ROADMAP.md Queue 1, item 6)")
+
+
+def prefill_width(cfg: ArchConfig, s: int) -> int:
+    """The width a prompt batch of ``s`` tokens is left-padded to for
+    ``cfg``'s layer plan: above ``MLSTM_CHUNK`` tokens a plan with mLSTM
+    layers pads to a multiple of that chunk; a plan with attention then
+    takes the flash rule (a multiple of ``FLASH_CHUNK`` from
+    ``FLASH_MIN_SEQ``). Pads are masked keys or identity updates, so the
+    extra width leaves every real row as it was."""
+    if cfg.has_mixer(MLSTM):
+        s = xlstm_mod.prefill_width(s)
+    if cfg.has_mixer(ATTN):
+        s = attn_mod.prefill_width(s)
+    return s
 
 
 # ---------------------------------------------------------------------------
@@ -47,19 +87,30 @@ def _check_block(spec: LayerSpec) -> None:
 
 def init_block(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec) -> Dict:
     _check_block(spec)
-    return {
-        "norm1": init_rmsnorm(cfg.d_model, gen.device),
-        "mixer": attn_mod.init_attention(gen, cfg, spec),
-        "norm2": init_rmsnorm(cfg.d_model, gen.device),
-        "ffn": (moe_mod.init_moe(gen, cfg) if spec.ffn == MOE
-                else init_mlp(gen, cfg.d_model, cfg.d_ff)),
-    }
+    mixer = (attn_mod.init_attention(gen, cfg, spec) if spec.mixer == ATTN
+             else _RECURRENT[spec.mixer].init(gen, cfg))
+    p = {"norm1": init_rmsnorm(cfg.d_model, gen.device), "mixer": mixer}
+    if spec.ffn != NONE:
+        p["norm2"] = init_rmsnorm(cfg.d_model, gen.device)
+        p["ffn"] = (moe_mod.init_moe(gen, cfg) if spec.ffn == MOE
+                    else init_mlp(gen, cfg.d_model, cfg.d_ff))
+    return p
+
+
+def init_block_cache(cfg: ArchConfig, spec: LayerSpec, batch: int, max_len: int,
+                     device) -> Dict:
+    _check_block(spec)
+    if spec.mixer == ATTN:
+        return attn_mod.init_kv_cache(cfg, spec, batch, max_len, device)
+    return _RECURRENT[spec.mixer].init_cache(cfg, batch, device)
 
 
 def _apply_ffn_prefill(cfg: ArchConfig, spec: LayerSpec, p: Dict, x: torch.Tensor,
                        mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Prefill takes the reference's train-path FFN: capacity-grouped MoE
     with pads left out of capacity (``mask``); the aux loss is dropped."""
+    if spec.ffn == NONE:
+        return x
     h = apply_rmsnorm(p["norm2"], x, cfg.norm_eps)
     if spec.ffn == MLP:
         return x + apply_mlp(p["ffn"], h)
@@ -68,6 +119,8 @@ def _apply_ffn_prefill(cfg: ArchConfig, spec: LayerSpec, p: Dict, x: torch.Tenso
 
 def _apply_ffn_decode(cfg: ArchConfig, spec: LayerSpec, p: Dict,
                       x: torch.Tensor) -> torch.Tensor:
+    if spec.ffn == NONE:
+        return x
     h = apply_rmsnorm(p["norm2"], x, cfg.norm_eps)
     if spec.ffn == MLP:
         return x + apply_mlp(p["ffn"], h)
@@ -78,18 +131,27 @@ def apply_block_prefill(cfg, spec, p, x, positions, cache, attn_mask=None):
     """Full-prompt pass that also fills this block's decode cache.
 
     ``attn_mask`` (B, S) bool marks real tokens of a left-padded batch:
-    pad keys are masked and recorded invalid in the cache per row.
+    attention masks pad keys and records them invalid in the cache per
+    row; the recurrent mixers make pad steps identity updates of their
+    state, which is the decode cache.
     """
     h = apply_rmsnorm(p["norm1"], x, cfg.norm_eps)
-    y, cache = attn_mod.self_attention_prefill(cfg, spec, p["mixer"], h,
-                                               positions, cache,
-                                               kv_valid=attn_mask)
+    if spec.mixer == ATTN:
+        y, cache = attn_mod.self_attention_prefill(cfg, spec, p["mixer"], h,
+                                                   positions, cache,
+                                                   kv_valid=attn_mask)
+    else:
+        y, state = _RECURRENT[spec.mixer].prefill(cfg, p["mixer"], h, mask=attn_mask)
+        cache.update(state)
     return _apply_ffn_prefill(cfg, spec, p, x + y, attn_mask), cache
 
 
 def apply_block_decode(cfg, spec, p, x, pos: int, cache):
     h = apply_rmsnorm(p["norm1"], x, cfg.norm_eps)
-    y, cache = attn_mod.self_attention_decode(cfg, spec, p["mixer"], h, cache, pos)
+    if spec.mixer == ATTN:
+        y, cache = attn_mod.self_attention_decode(cfg, spec, p["mixer"], h, cache, pos)
+    else:
+        y, cache = _RECURRENT[spec.mixer].decode(cfg, p["mixer"], h, cache)
     return _apply_ffn_decode(cfg, spec, p, x + y), cache
 
 
@@ -131,8 +193,9 @@ def seed_qkv_biases(params: Dict, cfg: ArchConfig, seed: int = 7) -> Dict:
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, device) -> List[Dict]:
     """One decode cache per layer, in layer-plan order: a ring for a
-    sliding-window layer, ``max_len`` linear slots otherwise."""
-    return [attn_mod.init_kv_cache(cfg, spec, batch, max_len, device)
+    sliding-window layer, ``max_len`` linear slots for another attention
+    layer, the recurrent state for a Mamba, mLSTM or sLSTM layer."""
+    return [init_block_cache(cfg, spec, batch, max_len, device)
             for spec in cfg.layer_plan()]
 
 

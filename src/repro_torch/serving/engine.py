@@ -26,7 +26,6 @@ from repro_torch.core.rewards import REWARDS
 from repro_torch.core.router import PredictiveRouter
 from repro_torch.data.featurizer import embed_texts
 from repro_torch.kernels import ops as kops
-from repro_torch.models import attention as attn_mod
 from repro_torch.models import lm as lm_mod
 
 # $ per 1e12 FLOPs — anchors active-param FLOPs to an API-like price axis.
@@ -66,22 +65,22 @@ class PoolMember:
                                       attn_mask=mask)
 
 
-def _batch_width(prompts: Sequence[np.ndarray]) -> int:
-    return attn_mod.prefill_width(max(int(len(p)) for p in prompts))
+def _batch_width(prompts: Sequence[np.ndarray], cfg) -> int:
+    return lm_mod.prefill_width(cfg, max(int(len(p)) for p in prompts))
 
 
-def pad_prompts(prompts: Sequence[np.ndarray], pad_id: int = 0) -> torch.Tensor:
+def pad_prompts(prompts: Sequence[np.ndarray], cfg, pad_id: int = 0) -> torch.Tensor:
     """Left-pad variable-length token rows into one (B, S) int32 batch.
 
     Left padding keeps the last prompt position real, which the greedy
     prefill conditions the first generated token on. Pass the matching
-    :func:`prompt_pad_mask` into generate so pad keys are masked and each
+    :func:`prompt_pad_mask` into generate so pads are masked and each
     request's output is invariant to its micro-batch neighbours. S is the
-    longest prompt, rounded up to a multiple of the flash chunk from
-    ``FLASH_MIN_SEQ`` tokens (:func:`attention.prefill_width`), so a long
-    prompt of any length meets the flash length rule.
+    longest prompt, rounded up to the length rules of ``cfg``'s layer plan
+    (:func:`lm.prefill_width`: a multiple of the mLSTM chunk above it, of
+    the flash chunk from ``FLASH_MIN_SEQ`` tokens).
     """
-    s_max = _batch_width(prompts)
+    s_max = _batch_width(prompts, cfg)
     out = np.full((len(prompts), s_max), pad_id, np.int32)
     for i, p in enumerate(prompts):
         p = np.asarray(p, np.int32)
@@ -89,9 +88,10 @@ def pad_prompts(prompts: Sequence[np.ndarray], pad_id: int = 0) -> torch.Tensor:
     return torch.from_numpy(out)
 
 
-def prompt_pad_mask(prompts: Sequence[np.ndarray]) -> torch.Tensor:
-    """(B, S) bool, True at real (right-aligned) token positions."""
-    s_max = _batch_width(prompts)
+def prompt_pad_mask(prompts: Sequence[np.ndarray], cfg) -> torch.Tensor:
+    """(B, S) bool, True at real (right-aligned) token positions; S as
+    :func:`pad_prompts` gives it for the same ``cfg``."""
+    s_max = _batch_width(prompts, cfg)
     mask = np.zeros((len(prompts), s_max), bool)
     for i, p in enumerate(prompts):
         mask[i, s_max - len(p):] = True
@@ -202,14 +202,15 @@ class RoutedEngine:
         """Run one generate micro-batch on a pool member.
 
         ``prompts`` are variable-length token rows, left-padded into one
-        batch. Returns ``(per-request output tokens, per-request $ costs)``.
+        batch to the member's length rules. Returns ``(per-request output
+        tokens, per-request $ costs)``.
         The charge is delivered work: prompt tokens plus the new tokens
         each request receives (capped by its ``max_new_per_req`` entry when
         given), at the member's per-token rate.
         """
         member = self.pool[member_idx]
-        toks = member.generate(pad_prompts(prompts), max_new=max_new,
-                               attn_mask=prompt_pad_mask(prompts)).cpu().numpy()
+        toks = member.generate(pad_prompts(prompts, member.cfg), max_new=max_new,
+                               attn_mask=prompt_pad_mask(prompts, member.cfg)).cpu().numpy()
         outs = [toks[i] for i in range(len(prompts))]
         per_tok = member.cost_rate / REF_TOKENS_OUT
         caps = (max_new_per_req if max_new_per_req is not None

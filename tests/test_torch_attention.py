@@ -149,7 +149,7 @@ def test_ring_prefill_and_decode_match_reference(lengths):
     prompts = [np.zeros(n, np.int32) for n in lengths]
     b, s, n_dec = len(lengths), max(lengths), 7
     xs = rng.standard_normal((b, s + n_dec, cfg.d_model)).astype(np.float32) * 0.5
-    jmask, mask = jax_prompt_pad_mask(prompts), prompt_pad_mask(prompts)
+    jmask, mask = jax_prompt_pad_mask(prompts), prompt_pad_mask(prompts, cfg)
     pos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s))
     jc = jax_attn.init_kv_cache(jcfg, spec, b, s + n_dec)
     tc = attn_mod.init_kv_cache(cfg, spec, b, s + n_dec, "cpu")
@@ -210,7 +210,7 @@ def test_qkv_bias_nonzero_matches_reference(window, softcap):
     prompts = [np.zeros(n, np.int32) for n in (10, 4)]
     b, s, n_dec = 2, 10, 4
     xs = rng.standard_normal((b, s + n_dec, cfg.d_model)).astype(np.float32) * 0.5
-    jmask, mask = jax_prompt_pad_mask(prompts), prompt_pad_mask(prompts)
+    jmask, mask = jax_prompt_pad_mask(prompts), prompt_pad_mask(prompts, cfg)
     pos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s))
     x = jnp.asarray(xs[:, :s])
     jy = jax_attn.self_attention_full_seq(jcfg, spec, jp, x, jnp.asarray(pos), kv_valid=jmask)
@@ -239,8 +239,8 @@ def test_flash_prefill_of_a_left_padded_batch_matches_reference():
     prompts = [np.zeros(n, np.int32) for n in (s, s - 1100)]
     rng = np.random.default_rng(9)
     xs = rng.standard_normal((2, s, cfg.d_model)).astype(np.float32) * 0.5
-    jmask, mask = jax_prompt_pad_mask(prompts), prompt_pad_mask(prompts)
-    np.testing.assert_array_equal(pad_prompts(prompts).numpy(),
+    jmask, mask = jax_prompt_pad_mask(prompts), prompt_pad_mask(prompts, cfg)
+    np.testing.assert_array_equal(pad_prompts(prompts, cfg).numpy(),
                                   np.asarray(jax_pad_prompts(prompts)))
     pos = np.broadcast_to(np.arange(s, dtype=np.int32), (2, s))
     x = jnp.asarray(xs)

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions, training, the
-mixture-of-experts member, and sliding-window and long-prompt attention,
-on the card.
+mixture-of-experts member, sliding-window and long-prompt attention, and
+the recurrent members (xlstm-1.3b, the jamba hybrid), on the card.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (marker ``cuda``) and
 skips without one: a CUDA kernel has no CPU mode. The file imports no JAX,
@@ -25,7 +25,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.launch.serve import DEFAULT_POOL, build_engine, synthetic_requests
 from repro_torch.configs.base import ATTN, MLP, LayerSpec
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import lm, moe
+from repro_torch.models import lm, moe, ssm, xlstm
 from repro_torch.serving.engine import RoutedEngine, pad_prompts, prompt_pad_mask
 from repro_torch.training import TrainConfig, train_dual_predictors, train_predictor
 
@@ -397,7 +397,7 @@ def test_moe_member_on_the_card_equals_the_cpu(cuda, monkeypatch):
     params_gpu = tree_map(lambda t: t.to(cuda), params)
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32) for n in (5, 17, 9)]
-    tok, mask = pad_prompts(prompts), prompt_pad_mask(prompts)
+    tok, mask = pad_prompts(prompts, cfg), prompt_pad_mask(prompts, cfg)
     with torch.inference_mode():
         caches = {d: lm.init_caches(cfg, 3, 20, d) for d in ("cpu", cuda)}
         lg_cpu, _ = lm.apply_lm_prefill(cfg, params, tok, caches["cpu"], mask)
@@ -486,7 +486,7 @@ def test_attention_members_on_the_card_equal_the_cpu(cuda, name, lengths):
     params_gpu = tree_map(lambda t: t.to(cuda), params)
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32) for n in lengths]
-    tok, mask = pad_prompts(prompts), prompt_pad_mask(prompts)
+    tok, mask = pad_prompts(prompts, cfg), prompt_pad_mask(prompts, cfg)
     s = tok.shape[1]
     with torch.inference_mode():
         caches = {d: lm.init_caches(cfg, len(prompts), s + 3, d) for d in ("cpu", cuda)}
@@ -502,3 +502,94 @@ def test_attention_members_on_the_card_equal_the_cpu(cuda, name, lengths):
     t_gpu = lm.greedy_generate(cfg, params_gpu, tok.to(cuda), 4, attn_mask=mask.to(cuda))
     t_cpu = lm.greedy_generate(cfg, params, tok, 4, attn_mask=mask)
     assert torch.equal(t_gpu.cpu(), t_cpu)
+
+
+# ---------------------------------------------------------------------------
+# Recurrent members on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["xlstm-1.3b", "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("lengths", [(5, 17, 9), (600, 40)])
+def test_recurrent_members_on_the_card_equal_the_cpu(cuda, name, lengths):
+    """Smoke xlstm-1.3b (600 tokens pad to 768, three mLSTM chunks) and
+    jamba (Mamba, attention, MoE): prefill and two decode steps' logits
+    within 1e-4 of the CPU's, greedy tokens equal."""
+    cfg = get_smoke_config(name)
+    params = lm.init_lm(torch.Generator().manual_seed(5), cfg)
+    params_gpu = tree_map(lambda t: t.to(cuda), params)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32) for n in lengths]
+    tok, mask = pad_prompts(prompts, cfg), prompt_pad_mask(prompts, cfg)
+    s = tok.shape[1]
+    with torch.inference_mode():
+        caches = {d: lm.init_caches(cfg, len(prompts), s + 3, d) for d in ("cpu", cuda)}
+        lg_cpu, _ = lm.apply_lm_prefill(cfg, params, tok, caches["cpu"], mask)
+        lg_gpu, _ = lm.apply_lm_prefill(cfg, params_gpu, tok.to(cuda), caches[cuda],
+                                        mask.to(cuda))
+        torch.testing.assert_close(lg_gpu.cpu(), lg_cpu, rtol=1e-4, atol=1e-4)
+        nxt = torch.argmax(lg_cpu[:, -1, :cfg.vocab_size], -1)[:, None].to(torch.int32)
+        for i in range(2):
+            lg_cpu, _ = lm.apply_lm_decode(cfg, params, nxt, caches["cpu"], s + i)
+            lg_gpu, _ = lm.apply_lm_decode(cfg, params_gpu, nxt.to(cuda), caches[cuda], s + i)
+            torch.testing.assert_close(lg_gpu.cpu(), lg_cpu, rtol=1e-4, atol=1e-4)
+    t_gpu = lm.greedy_generate(cfg, params_gpu, tok.to(cuda), 4, attn_mask=mask.to(cuda))
+    t_cpu = lm.greedy_generate(cfg, params, tok, 4, attn_mask=mask)
+    assert torch.equal(t_gpu.cpu(), t_cpu)
+
+
+def test_mlstm_chunkwise_equals_the_step_recurrence_on_the_card(cuda):
+    """Chunks of 64 over 256 tokens against ``mlstm_step`` token by token,
+    on the card (h 3e-5, C 1e-5), and the card's chunkwise against the CPU's."""
+    rng = np.random.default_rng(4)
+    b, t, h, dh = 2, 256, 4, 64
+    args = [torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.standard_normal((b, t, h, dh)), rng.standard_normal((b, t, h, dh)) / 8,
+        rng.standard_normal((b, t, h, dh)), rng.standard_normal((b, t, h)) - 2.0,
+        -np.logaddexp(0.0, -(rng.standard_normal((b, t, h)) + 2.0)))]
+    dev = [a.to(cuda) for a in args]
+    h_chunk, final = xlstm.mlstm_chunkwise(*dev, chunk=64)
+    state = {"C": torch.zeros((b, h, dh, dh), device=cuda),
+             "n": torch.zeros((b, h, dh), device=cuda),
+             "m": torch.full((b, h), xlstm.NEG_INF, device=cuda)}
+    hs = []
+    for i in range(t):
+        h_i, state = xlstm.mlstm_step(*(a[:, i] for a in dev), state)
+        hs.append(h_i)
+    assert float((torch.stack(hs, 1) - h_chunk).abs().max()) < 3e-5
+    assert float((state["C"] - final["C"]).abs().max()) < 1e-5
+    h_cpu, _ = xlstm.mlstm_chunkwise(*args, chunk=64)
+    torch.testing.assert_close(h_chunk.cpu(), h_cpu, rtol=1e-5, atol=3e-5)
+
+
+def test_mamba_chunked_scan_equals_the_step_recurrence_on_the_card(cuda):
+    """Smoke jamba's Mamba layer over 150 tokens (chunks 128 + 22) against
+    its decode step token by token, on the card, and against the CPU."""
+    cfg = get_smoke_config("jamba-1.5-large-398b")
+    p = ssm.init_mamba(torch.Generator().manual_seed(0), cfg)
+    pg = tree_map(lambda a: a.to(cuda), p)
+    x = torch.randn((2, 150, cfg.d_model), generator=torch.Generator().manual_seed(1)) * 0.5
+    out, state = ssm.apply_mamba_prefill(cfg, pg, x.to(cuda))
+    cache = ssm.init_mamba_cache(cfg, 2, cuda)
+    steps = [ssm.apply_mamba_decode(cfg, pg, x[:, i:i + 1].to(cuda), cache)[0]
+             for i in range(150)]
+    torch.testing.assert_close(torch.cat(steps, 1), out, rtol=1e-5, atol=2e-5)
+    torch.testing.assert_close(cache["h"], state["h"], rtol=1e-5, atol=2e-5)
+    out_cpu, _ = ssm.apply_mamba_prefill(cfg, p, x)
+    torch.testing.assert_close(out.cpu(), out_cpu, rtol=1e-5, atol=2e-5)
+
+
+def test_build_engine_serves_the_recurrent_pool_on_the_card(cuda):
+    """qwen3-0.6b, xlstm-1.3b and jamba at smoke size: the router trains for
+    K = 3 on the card and scores through the kernel; the recurrent members
+    generate a 300-token prompt (xlstm pads it to 512)."""
+    names = ["qwen3-0.6b", "xlstm-1.3b", "jamba-1.5-large-398b"]
+    engine = build_engine(names, smoke=True, device=cuda, epochs=3)
+    texts, prompts = synthetic_requests(6, 512, seed=1, min_len=3, max_len=20)
+    before = router_xattn_cuda.launches
+    engine.serve(texts, prompts, max_new=4)
+    assert router_xattn_cuda.launches == before + 1
+    long = [np.arange(300, dtype=np.int32) % 512, np.arange(7, dtype=np.int32)]
+    for mi in (1, 2):
+        outs, costs = engine.generate_member(mi, long, max_new=3)
+        assert all(len(o) == 3 and 0 <= o.min() and o.max() < 512 for o in outs)
+        assert np.all(costs > 0)

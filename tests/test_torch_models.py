@@ -8,7 +8,9 @@ FFN (capacity-dispatched prefill, no-drop decode): its logits hold the
 same 1e-4, and its tokens are equal. qwen1.5-4b adds QKV bias; gemma3-27b
 sliding-window locals (window 8 at smoke size) on ring caches, which the
 mixed prompts and their decode steps wrap, and one 2048-token prompt
-that takes the flash path.
+that takes the flash path. xlstm-1.3b (sLSTM and mLSTM, no FFN) and the
+jamba hybrid (Mamba, attention, MLP and MoE) decode from recurrent
+states; a 300-token xlstm prompt is served padded to the mLSTM chunk.
 """
 import dataclasses
 
@@ -36,7 +38,8 @@ from repro_torch.serving.engine import (
     PoolMember, RoutedEngine, arch_cost_rate, pad_prompts, prompt_pad_mask,
 )
 
-NAMES = ["qwen3-0.6b", "granite-moe-1b-a400m", "granite-3-8b", "qwen1.5-4b", "gemma3-27b"]
+NAMES = ["qwen3-0.6b", "granite-moe-1b-a400m", "granite-3-8b", "qwen1.5-4b", "gemma3-27b",
+         "xlstm-1.3b", "jamba-1.5-large-398b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -70,8 +73,8 @@ def test_prefill_and_decode_logits_match(member):
     _, jcfg, jparams, cfg, tparams = member
     prompts = _mixed_prompts(0, cfg.vocab_size, [9, 4, 12])
     b, s, n_dec = len(prompts), 12, 3
-    jmask, mask = jax_prompt_pad_mask(prompts), prompt_pad_mask(prompts)
-    jtok, tok = jax_pad_prompts(prompts), pad_prompts(prompts)
+    jmask, mask = jax_prompt_pad_mask(prompts), prompt_pad_mask(prompts, cfg)
+    jtok, tok = jax_pad_prompts(prompts), pad_prompts(prompts, cfg)
     jc = jax_lm.init_caches(jcfg, b, s + n_dec)
     tc = lm.init_caches(cfg, b, s + n_dec, "cpu")
     jl, jc = jax_lm.apply_lm_prefill(jcfg, jparams, jtok, jc, attn_mask=jmask)
@@ -92,12 +95,12 @@ def test_prefill_and_decode_logits_match(member):
 def test_greedy_tokens_equal_on_left_padded_batch(member):
     _, jcfg, jparams, cfg, tparams = member
     prompts = _mixed_prompts(2, cfg.vocab_size, [5, 11, 3, 8])
-    np.testing.assert_array_equal(pad_prompts(prompts).numpy(),
+    np.testing.assert_array_equal(pad_prompts(prompts, cfg).numpy(),
                                   np.asarray(jax_pad_prompts(prompts)))
     jt = jax_lm.greedy_generate(jcfg, jparams, jax_pad_prompts(prompts), 5,
                                 attn_mask=jax_prompt_pad_mask(prompts))
-    tt = lm.greedy_generate(cfg, tparams, pad_prompts(prompts), 5,
-                            attn_mask=prompt_pad_mask(prompts))
+    tt = lm.greedy_generate(cfg, tparams, pad_prompts(prompts, cfg), 5,
+                            attn_mask=prompt_pad_mask(prompts, cfg))
     assert tt.dtype == torch.int32 and tt.shape == (4, 5)
     np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
 
@@ -105,11 +108,11 @@ def test_greedy_tokens_equal_on_left_padded_batch(member):
 def test_request_alone_equals_request_in_batch(member):
     _, _, _, cfg, tparams = member
     prompts = _mixed_prompts(4, cfg.vocab_size, [7, 2, 10])
-    batch = lm.greedy_generate(cfg, tparams, pad_prompts(prompts), 4,
-                               attn_mask=prompt_pad_mask(prompts))
+    batch = lm.greedy_generate(cfg, tparams, pad_prompts(prompts, cfg), 4,
+                               attn_mask=prompt_pad_mask(prompts, cfg))
     for i, p in enumerate(prompts):
-        alone = lm.greedy_generate(cfg, tparams, pad_prompts([p]), 4,
-                                   attn_mask=prompt_pad_mask([p]))
+        alone = lm.greedy_generate(cfg, tparams, pad_prompts([p], cfg), 4,
+                                   attn_mask=prompt_pad_mask([p], cfg))
         np.testing.assert_array_equal(alone[0].numpy(), batch[i].numpy())
 
 
@@ -117,20 +120,23 @@ def test_bridge_keeps_every_reference_weight(member):
     _, jcfg, jparams, cfg, tparams = member
     assert len(tparams["layers"]) == cfg.n_layers
     np_params = jax.tree.map(np.asarray, jparams)
+    assert ("remainder" in np_params) == bool(cfg.remainder)
     for r in range(cfg.n_repeats):
-        layer = tparams["layers"][r]
-        ref_w = np_params["pattern"][0]["mixer"]["wq"][r]
-        np.testing.assert_array_equal(layer["mixer"]["wq"].numpy(), ref_w)
-        np.testing.assert_array_equal(layer["ffn"]["w_down"].numpy(),
-                                      np_params["pattern"][0]["ffn"]["w_down"][r])
-        # Every leaf of the repeat, the MoE router (d, E) and experts
-        # (E, d, fe) / (E, fe, d) included.
-        mine = flatten_with_paths(layer)
-        ref = flatten_with_paths(jax.tree.map(lambda a, r=r: a[r],
-                                              np_params["pattern"][0]))
-        assert mine.keys() == ref.keys()
-        for path, leaf in ref.items():
-            np.testing.assert_array_equal(mine[path].numpy(), leaf)
+        for j, spec in enumerate(cfg.pattern):
+            layer = tparams["layers"][r * len(cfg.pattern) + j]
+            if spec.mixer == ATTN:
+                np.testing.assert_array_equal(layer["mixer"]["wq"].numpy(),
+                                              np_params["pattern"][j]["mixer"]["wq"][r])
+            # Every leaf of the layer: the MoE router (d, E) and experts
+            # (E, d, fe) / (E, fe, d), the recurrent mixers' gates and
+            # states' parameters included; an FFN-less block has none.
+            mine = flatten_with_paths(layer)
+            ref = flatten_with_paths(jax.tree.map(lambda a, r=r: a[r],
+                                                  np_params["pattern"][j]))
+            assert mine.keys() == ref.keys()
+            assert ("ffn" in layer) == (spec.ffn != "none")
+            for path, leaf in ref.items():
+                np.testing.assert_array_equal(mine[path].numpy(), leaf)
     np.testing.assert_array_equal(tparams["embedding"]["head"].numpy(),
                                   np_params["embedding"]["head"])
 
@@ -161,8 +167,12 @@ def test_port_init_matches_reference_layout(name):
               if path.rsplit("/", 1)[-1] in ("bq", "bk", "bv")]
     assert len(biases) == (3 * cfg.n_layers if cfg.qkv_bias else 0)
     assert not any(b.any() for b in biases)
-    # Truncated-normal fan-in weights stay inside ±3σ, σ = 1/sqrt(d_in).
-    w = mine["layers"][0]["ffn"]["w_gate"]
+    # Truncated-normal fan-in weights stay inside ±3σ, σ = 1/sqrt(d_in):
+    # the first layer's MLP, or its mixer's input projection without one.
+    layer = mine["layers"][0]
+    w = (layer["ffn"]["w_gate"] if "ffn" in layer
+         else next(layer["mixer"][k] for k in ("wq", "in_proj", "up_proj", "w")
+                   if k in layer["mixer"]))
     bound = 3.0 / np.sqrt(cfg.d_model)
     assert float(w.abs().max()) <= bound * (1 + 1e-6)
     assert 0.5 * bound / 3 < float(w.std()) < bound / 3
@@ -197,10 +207,10 @@ def test_rmsnorm_rope_mlp_match_reference():
 
 
 def test_unported_options_raise():
-    """What stays unported raises, naming ROADMAP: the xLSTM and other
-    configs, cross attention, and the mamba and xLSTM mixers."""
+    """What stays unported raises, naming ROADMAP: the three configs left
+    and cross attention (XATTN), as a block, a cache, and in the count."""
     cfg = get_smoke_config("qwen3-0.6b")
-    for name in ("xlstm-1.3b", "jamba-1.5-large-398b", "llama-3.2-vision-90b"):
+    for name in ("musicgen-large", "llama4-maverick-400b-a17b", "llama-3.2-vision-90b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config(name)
     xattn = LayerSpec(mixer="xattn", ffn="mlp")
@@ -208,14 +218,14 @@ def test_unported_options_raise():
         attn_mod.init_kv_cache(cfg, xattn, 1, 4, "cpu")
     with pytest.raises(NotImplementedError, match="XATTN"):
         attn_mod.init_attention(torch.Generator(), cfg, xattn)
-    for mixer in ("mamba", "mlstm", "slstm", "xattn"):
-        for ffn in ("mlp", "moe"):
-            with pytest.raises(NotImplementedError, match=f"{mixer}.*item 6"):
-                lm.init_block(torch.Generator(), cfg, LayerSpec(mixer=mixer, ffn=ffn))
-            if mixer != "xattn":
-                with pytest.raises(NotImplementedError, match="item 6"):
-                    dataclasses.replace(cfg, pattern=(LayerSpec(mixer=mixer, ffn=ffn),),
-                                        n_layers=2).param_count()
+    for ffn in ("mlp", "moe", "none"):
+        spec = LayerSpec(mixer="xattn", ffn=ffn)
+        with pytest.raises(NotImplementedError, match="xattn.*item 6"):
+            lm.init_block(torch.Generator(), cfg, spec)
+        with pytest.raises(NotImplementedError, match="xattn.*item 6"):
+            lm.init_block_cache(cfg, spec, 1, 4, "cpu")
+        with pytest.raises(NotImplementedError, match="item 6"):
+            dataclasses.replace(cfg, pattern=(spec,), n_layers=2).param_count()
 
 
 def test_bridge_orders_a_remainder_after_the_repeats():
@@ -285,11 +295,38 @@ def test_serving_a_prompt_off_the_flash_chunk_pads_it_and_matches_reference():
         device="cpu")
     rng = np.random.default_rng(12)
     prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32) for n in (2500, 40)]
-    tok, mask = pad_prompts(prompts), prompt_pad_mask(prompts)
+    tok, mask = pad_prompts(prompts, cfg), prompt_pad_mask(prompts, cfg)
     assert tok.shape == mask.shape == (2, 3072)
     with pytest.raises(ValueError, match="multiple of its chunks"):
         lm.apply_lm_prefill(cfg, tparams, tok[:1, 3072 - 2500:],
                             lm.init_caches(cfg, 1, 2501, "cpu"))
+    n_new = 3
+    want = np.asarray(jax_lm.greedy_generate(jcfg, jparams, jnp.asarray(tok.numpy()), n_new,
+                                             attn_mask=jnp.asarray(mask.numpy())))
+    batch = engine.serve(["long", "short"], prompts, max_new=n_new)["outputs"]
+    alone = engine.serve(["long"], prompts[:1], max_new=n_new)["outputs"]
+    np.testing.assert_array_equal(np.stack(batch), want)
+    np.testing.assert_array_equal(alone[0], want[0])
+
+
+def test_serving_a_300_token_xlstm_prompt_pads_it_to_the_mlstm_chunk():
+    """``RoutedEngine.serve`` takes a 300-token prompt on smoke xlstm-1.3b,
+    which ``mlstm_chunkwise`` alone refuses (not a multiple of its 256
+    chunk): the engine left-pads the batch to 512, and the served tokens,
+    alone and beside a short prompt, equal the reference's greedy
+    generation of that padded batch."""
+    name = "xlstm-1.3b"
+    jcfg, cfg = jax_get_smoke(name), get_smoke_config(name)
+    jparams = jax_lm.init_lm(jax.random.key(3), jcfg)
+    tparams = bridge.lm_params_from_jax(cfg, jax.tree.map(np.asarray, jparams), "cpu")
+    engine = RoutedEngine(
+        router=init_router(1, device="cpu"),
+        pool=[PoolMember(name=name, cfg=cfg, params=tparams, cost_rate=arch_cost_rate(cfg))],
+        device="cpu")
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32) for n in (300, 40)]
+    tok, mask = pad_prompts(prompts, cfg), prompt_pad_mask(prompts, cfg)
+    assert tok.shape == mask.shape == (2, 512)
     n_new = 3
     want = np.asarray(jax_lm.greedy_generate(jcfg, jparams, jnp.asarray(tok.numpy()), n_new,
                                              attn_mask=jnp.asarray(mask.numpy())))

@@ -384,8 +384,8 @@ def moe_lm():
 
 
 def _gen(cfg, params, prompts, max_new=4):
-    return lm.greedy_generate(cfg, params, pad_prompts(prompts), max_new,
-                              attn_mask=prompt_pad_mask(prompts)).numpy()
+    return lm.greedy_generate(cfg, params, pad_prompts(prompts, cfg), max_new,
+                              attn_mask=prompt_pad_mask(prompts, cfg)).numpy()
 
 
 def test_lm_batch_composition_invariance(moe_lm):

@@ -7,11 +7,15 @@ its own ``load_router`` and carries the pool's weights through
 reference through its Pallas kernel in interpret mode) and must agree on
 choices, tokens, per-member counts, and total $ to 1e-12 relative. The
 pool is the reference's default three members, the mixture-of-experts
-granite-moe-1b-a400m among them, so the kernel scores K = 3.
+granite-moe-1b-a400m among them, so the kernel scores K = 3. A second
+pool, qwen3-0.6b, xlstm-1.3b and the jamba hybrid, generates the
+reference's tokens on its recurrent members, a 300-token prompt among
+them.
 """
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -24,6 +28,7 @@ from repro.data.featurizer import embed_texts as jax_embed_texts
 from repro.launch.serve import build_pool as jax_build_pool
 from repro.launch.serve import make_parser as jax_make_parser
 from repro.launch.serve import pool_quality_columns as jax_pool_quality_columns
+from repro.models import lm as jax_lm
 from repro.serving.engine import RoutedEngine as JaxEngine
 from repro.serving.engine import arch_cost_per_token as jax_arch_cost_per_token
 from repro.serving.engine import arch_cost_rate as jax_arch_cost_rate
@@ -36,10 +41,12 @@ from repro_torch.launch.serve import (
     DEFAULT_POOL, build_engine, init_router, pool_quality_columns, synthetic_requests,
 )
 from repro_torch.serving.engine import (
-    PoolMember, RoutedEngine, arch_cost_per_token, arch_cost_rate,
+    PoolMember, RoutedEngine, arch_cost_per_token, arch_cost_rate, pad_prompts,
+    prompt_pad_mask,
 )
 
 NAMES = ["qwen3-0.6b", "granite-moe-1b-a400m", "granite-3-8b"]
+RECURRENT_POOL = ["qwen3-0.6b", "xlstm-1.3b", "jamba-1.5-large-398b"]
 K = len(NAMES)
 SCALER = {"mu": np.array([0.02, 0.1, 0.3], np.float64),
           "sd": np.array([0.05, 0.1, 0.2], np.float64)}
@@ -239,7 +246,7 @@ def test_port_checkpoint_loads_bitwise_in_jax(tmp_path):
         assert bytes(a["__repro_meta__"]) == bytes(b["__repro_meta__"])
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", NAMES + RECURRENT_POOL[1:])
 def test_cost_rates_match_reference(name):
     assert arch_cost_rate(get_config(name)) == jax_arch_cost_rate(jax_get_config(name))
 
@@ -279,3 +286,40 @@ def test_default_pool_is_the_references_and_trains_for_three_members():
     assert cols[names.index("granite-moe-1b-a400m")] == int(np.argmin(data.cost.mean(0)))
     s, c = engine.score_texts(["prove the integral converges", "write a short poem"])
     assert s.shape == c.shape == (2, 3) and np.isfinite(s).all()
+
+
+@pytest.mark.parametrize("member", RECURRENT_POOL[1:])
+def test_recurrent_members_generate_the_references_tokens(member):
+    """The reference's smoke pool with xlstm-1.3b and jamba, carried across:
+    ``generate_member`` on prompts of 300, 7 and 40 tokens gives the
+    reference's greedy tokens on the batch the port pads (512 wide for
+    xlstm's mLSTM chunk, 300 for jamba), and the delivered-token charge."""
+    jax_pool = jax_build_pool(RECURRENT_POOL, seed=0)
+    engine = RoutedEngine(router=init_router(3, device="cpu"),
+                          pool=_port_pool(jax_pool), device="cpu")
+    mi = RECURRENT_POOL.index(member)
+    cfg, jmember = engine.pool[mi].cfg, jax_pool[mi]
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32) for n in (300, 7, 40)]
+    tok, mask = pad_prompts(prompts, cfg), prompt_pad_mask(prompts, cfg)
+    assert tok.shape[1] == (512 if member == "xlstm-1.3b" else 300)
+    want = np.asarray(jax_lm.greedy_generate(jmember.cfg, jmember.params,
+                                             jnp.asarray(tok.numpy()), 3,
+                                             attn_mask=jnp.asarray(mask.numpy())))
+    outs, costs = engine.generate_member(mi, prompts, max_new=3)
+    np.testing.assert_array_equal(np.stack(outs), want)
+    per_tok = jmember.cost_rate / 256
+    np.testing.assert_allclose(costs, [per_tok * (len(p) + 3) for p in prompts], rtol=1e-12)
+
+
+def test_recurrent_pool_trains_and_serves():
+    """``build_engine`` on the recurrent pool: the router trains for K = 3
+    and serves through every member's prefill and decode."""
+    engine = build_engine(RECURRENT_POOL, smoke=True, device="cpu", epochs=2, n_traffic=200)
+    assert engine.router.n_members == 3
+    texts, prompts = synthetic_requests(6, 512, seed=2, min_len=3, max_len=20)
+    res = engine.serve(texts, prompts, max_new=3)
+    assert all(len(o) == 3 and 0 <= o.min() and o.max() < 512 for o in res["outputs"])
+    for mi in range(3):
+        outs, _ = engine.generate_member(mi, prompts[:2], max_new=2)
+        assert all(len(o) == 2 for o in outs)
