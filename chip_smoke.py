@@ -81,14 +81,39 @@ Phases (any failure raises and exits non-zero before the last line):
      bound (weights, the K/V cache, the recurrent state read and written)
      and xlstm's sLSTM and mLSTM shares of prefill (one layer of each timed
      alone, times its count).
- 13. table2: the paper's Table 2 on pool1 (K = 5) with benchmarks/common.py's
+ 13. multimodal: with the recurrent pool freed, smoke musicgen-large,
+     llama4-maverick and llama-3.2-vision (with seeded stub media) on the
+     card against the CPU at 17 and 600 tokens (1e-4); then two pools in
+     turn, each built by ``build_cut_pool`` (``build_pool``, then the cut
+     member) with its router trained through ``train_engine`` and freed
+     before the next (checked < 1 GiB left).
+     Pool A: qwen3-0.6b, musicgen-large at published size (48 layers) and
+     llama-3.2-vision at published width cut to one repeat of its pattern
+     (4 self-attention layers, then one cross layer over 1601 media tokens
+     of 1280), with its stub media. Pool B: qwen3-0.6b and llama4-maverick
+     at published width cut to its first two layers (ATTN+MLP, ATTN+MoE,
+     128 experts top-1 and a shared expert). For each pool: 8 requests
+     served and generated by each member but qwen3 with the MoE decode drop
+     log set (all 0), and the routing split of the 240 held-out queries
+     through ``router_xattn`` (1e-5 against the plain predictor). On pool A,
+     the vision member's prompts of 40, 300, 1000 and 2048 tokens as one
+     left-padded batch (flash self attention, dense cross attention; peak
+     memory printed) and each alone (a part excused only at a logit margin
+     of at most 1e-4), and the full-width cross layer's decode step on the
+     prefilled media cache against its full sequence (1e-5). Prefill and
+     decode step of musicgen, the vision member and llama4 at S 1024, B 1
+     and 8, with the device's busy time, the decode step's bytes bound (the
+     media K/V counted; for llama4 with the experts the tokens chose and
+     with all 128, as the decode rule reads them) and llama4's prefill
+     capacity drops; device memory after each build and each timing.
+ 14. table2: the paper's Table 2 on pool1 (K = 5) with benchmarks/common.py's
      defaults (4000 queries, 300 epochs): the attention router and the MLP
      trained on the card, KNN (k = 20), SVM, LLM-Blender and the oracle, each
      with AIQ and perf_max over the 25-point lambda grid; the same attention
      quality predictor trained on the CPU from the same initial params must
      agree (losses rtol 1e-3, AIQ 5e-3); ``router_xattn`` on the trained
      params over the 1000 held-out queries (1e-5), timed.
-Each path (serve, moe, trace, lookup, attn_long, recurrent) runs with every kernel's
+Each path (serve, moe, trace, lookup, attn_long, recurrent, multimodal) runs with every kernel's
 launch count set to 0 just before it and read just after; a kernel of the
 path that was not launched fails the run. The kernel checks on trained params (train,
 table2) are counted the same way. The second-to-last line is a JSON object
@@ -97,6 +122,7 @@ kernel libraries are built into build/repro_torch/ under the checkout.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -154,6 +180,21 @@ RECURRENT_PROMPTS = (100, 300, 1024, 2048)
 SERVED_RECURRENT = (1000, 40)
 RECURRENT_TIMES = ((XLSTM_MEMBER, (1024, 2048)), (JAMBA_MEMBER, (1024,)))
 CHUNK_CHECK_SEQ = 512
+# [multimodal]: pool A holds musicgen-large at published size and
+# llama-3.2-vision at published width cut to one repeat of its pattern (4
+# self + 1 cross layer); pool B, built once A is freed, llama4-maverick at
+# published width cut to one repeat (ATTN+MLP, ATTN+MoE), which fits only
+# beside the smallest member. The recurrent pool is freed first.
+MULTIMODAL_POOLS = (("A", ["qwen3-0.6b", "musicgen-large", "llama-3.2-vision-90b"]),
+                    ("B", ["qwen3-0.6b", "llama4-maverick-400b-a17b"]))
+MUSIC_MEMBER, VISION_MEMBER = MULTIMODAL_POOLS[0][1][1:]
+LLAMA4_MEMBER = MULTIMODAL_POOLS[1][1][1]
+# The vision member alone vs batched, with its stub media: the batch pads to
+# 2048 (flash self attention), where cross attention stays dense.
+VISION_PROMPTS = (40, 300, 1000, 2048)
+MULTIMODAL_TIMES_S = 1024
+# The full-width cross layer's decode against the full sequence: B, S.
+CROSS_CHECK = (2, 64)
 
 
 def log(msg: str) -> None:
@@ -500,10 +541,11 @@ def member_profile(member, tok, mask, tag) -> dict:
 
     cfg = member.cfg
     b, s = tok.shape
+    media = member.batch_media(b)
     with torch.inference_mode():
         caches = lm.init_caches(cfg, b, s + MAX_NEW, "cuda")
         t_pre, (logits, caches) = _synced(
-            lambda: lm.apply_lm_prefill(cfg, member.params, tok, caches, mask))
+            lambda: lm.apply_lm_prefill(cfg, member.params, tok, caches, mask, media=media))
         nxt = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
         steps = [_synced(lambda i=i: lm.apply_lm_decode(cfg, member.params, nxt,
                                                         caches, s + i))[0]
@@ -512,7 +554,8 @@ def member_profile(member, tok, mask, tag) -> dict:
             cfg, member.params, nxt, caches, s + MAX_NEW - 2), check_total=True)
         del caches, logits             # one set of caches alive at a time
         pre_busy, pre_by_name = profile_device(lambda: lm.apply_lm_prefill(
-            cfg, member.params, tok, lm.init_caches(cfg, b, s + MAX_NEW, "cuda"), mask))
+            cfg, member.params, tok, lm.init_caches(cfg, b, s + MAX_NEW, "cuda"), mask,
+            media=media))
     step = float(np.median(steps))
     out = {"prefill_ms": t_pre * 1e3, "prefill_busy_ms": pre_busy,
            "prefill_idle": max(0.0, 1 - pre_busy / (t_pre * 1e3)),
@@ -557,27 +600,33 @@ def phase_breakdown(engine, texts, prompts):
 def smoke_card_vs_cpu(name, lengths, tag) -> float:
     """A smoke config's seeded params on the card and on the CPU: prefill of
     left-padded prompts of ``lengths`` and two decode steps, logits within
-    1e-4; greedy tokens equal. Returns the largest logit gap."""
+    1e-4; greedy tokens equal; a config with cross attention reads the
+    same seeded stub media on both. Returns the largest logit gap."""
     from repro_torch.common.tree import tree_map
     from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import stub_media
     from repro_torch.models import lm
     from repro_torch.serving.engine import pad_prompts, prompt_pad_mask
 
     cfg = get_smoke_config(name)
-    params_cpu = lm.seed_qkv_biases(lm.init_lm(torch.Generator().manual_seed(5), cfg), cfg)
+    gen = torch.Generator().manual_seed(5)
+    params_cpu = lm.seed_qkv_biases(lm.init_lm(gen, cfg), cfg)
     params_gpu = tree_map(lambda t: t.cuda(), params_cpu)
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32) for n in lengths]
     tok, mask = pad_prompts(prompts, cfg), prompt_pad_mask(prompts, cfg)
     b, s = tok.shape
+    m_cpu = stub_media(cfg, gen)
+    m_cpu = None if m_cpu is None else m_cpu.expand(b, -1, -1)
+    m_gpu = None if m_cpu is None else m_cpu.cuda()
     e = 0.0
     with torch.inference_mode():
         c_cpu, c_gpu = lm.init_caches(cfg, b, s + 3, "cpu"), lm.init_caches(cfg, b, s + 3, "cuda")
         for i in range(3):      # the prefill, then two decode steps
             if i == 0:
-                lg_cpu, _ = lm.apply_lm_prefill(cfg, params_cpu, tok, c_cpu, mask)
+                lg_cpu, _ = lm.apply_lm_prefill(cfg, params_cpu, tok, c_cpu, mask, media=m_cpu)
                 lg_gpu, _ = lm.apply_lm_prefill(cfg, params_gpu, tok.cuda(), c_gpu,
-                                                mask.cuda())
+                                                mask.cuda(), media=m_gpu)
                 nxt = torch.argmax(lg_cpu[:, -1, :cfg.vocab_size], -1)[:, None]
             else:
                 lg_cpu, _ = lm.apply_lm_decode(cfg, params_cpu, nxt, c_cpu, s + i - 1)
@@ -585,8 +634,9 @@ def smoke_card_vs_cpu(name, lengths, tag) -> float:
             e = max(e, float((lg_gpu.cpu() - lg_cpu).abs().max()))
             check(torch.allclose(lg_gpu.cpu(), lg_cpu, rtol=1e-4, atol=1e-4),
                   f"smoke {name} S={s} logits card vs CPU (step {i}), max |err| {e:.3g}")
-    t_cpu = lm.greedy_generate(cfg, params_cpu, tok, 6, attn_mask=mask)
-    t_gpu = lm.greedy_generate(cfg, params_gpu, tok.cuda(), 6, attn_mask=mask.cuda())
+    t_cpu = lm.greedy_generate(cfg, params_cpu, tok, 6, attn_mask=mask, media=m_cpu)
+    t_gpu = lm.greedy_generate(cfg, params_gpu, tok.cuda(), 6, attn_mask=mask.cuda(),
+                               media=m_gpu)
     check(torch.equal(t_cpu, t_gpu.cpu()), f"smoke {name} S={s} greedy tokens card vs CPU")
     log(f"[{tag}] smoke {name} on card vs CPU, prompts {list(lengths)} (S {s}): prefill "
         f"and 2 decode steps' logits max |err| {e:.3g} (tol 1e-4), greedy tokens equal")
@@ -624,13 +674,15 @@ def decode_step_bound(member, b, s_kv, experts_read) -> tuple:
     """Least time on an H100 SXM for one fp32 decode step of ``b`` tokens
     over ``s_kv`` cached positions: bytes (every weight of the member's
     params but the embedding table read once, with ``experts_read`` expert
-    SwiGLUs of the MoE layers in place of all of them; ``b`` table rows;
-    the K/V cache in use, at most the window's positions in a
-    sliding-window layer; each recurrent state read and written once; the
-    logits written) over HBM bandwidth vs fp32 operations (2 per weight
-    of those params a token uses, with ``top_k`` experts per MoE layer; 4
-    per attended position, head dim and query head, 4 per state element)
-    over the CUDA-core peak. Returns (ms, "bytes" | "operations", bytes)."""
+    SwiGLUs of the MoE layers in place of all of them, and without a cross
+    layer's projector and K/V weights, which only prefill reads; ``b``
+    table rows; the K/V cache in use, at most the window's positions in a
+    sliding-window layer, and each cross layer's media K/V; each recurrent
+    state read and written once; the logits written) over HBM bandwidth vs
+    fp32 operations (2 per weight of those params a token uses, with
+    ``top_k`` experts per MoE layer; 4 per attended position or media
+    token, head dim and query head, 4 per state element) over the
+    CUDA-core peak. Returns (ms, "bytes" | "operations", bytes)."""
     from repro_torch.common.tree import flatten_with_paths
     from repro_torch.models import lm
 
@@ -639,15 +691,19 @@ def decode_step_bound(member, b, s_kv, experts_read) -> tuple:
     table = cfg.padded_vocab * d
     n_moe = sum(1 for spec in cfg.layer_plan() if spec.ffn == "moe")
     expert = 3 * d * cfg.resolved_d_ff_expert
-    made = sum(t.numel() for t in flatten_with_paths(member.params).values()) - table
+    n_x = sum(1 for spec in cfg.layer_plan() if spec.mixer == "xattn")
+    prefill_only = n_x * (cfg.frontend_dim * d + d + 2 * d * cfg.n_kv_heads * hd)
+    made = (sum(t.numel() for t in flatten_with_paths(member.params).values())
+            - table - prefill_only)
     weights = made - (n_moe * cfg.n_experts - experts_read) * expert
     active = made - n_moe * (cfg.n_experts - cfg.top_k) * expert
     attended = sum(min(spec.window, s_kv) if spec.window > 0 else s_kv
                    for spec in cfg.layer_plan() if spec.mixer == "attn")
+    attended += n_x * cfg.n_frontend_tokens
     kv = 2 * b * attended * cfg.n_kv_heads * hd
     state = sum(t.numel() for spec, cache in zip(cfg.layer_plan(),
                                                  lm.init_caches(cfg, b, 1, "meta"))
-                if spec.mixer != "attn" for t in cache.values())
+                if spec.mixer not in ("attn", "xattn") for t in cache.values())
     n_bytes = 4 * (weights + b * d + kv + 2 * state + b * cfg.padded_vocab)
     ops = (2 * b * active
            + 4 * b * attended * cfg.n_heads * hd + 4 * state)
@@ -656,7 +712,7 @@ def decode_step_bound(member, b, s_kv, experts_read) -> tuple:
             n_bytes)
 
 
-def greedy_margins(cfg, params, tok, mask, max_new):
+def greedy_margins(cfg, params, tok, mask, max_new, media=None):
     """``lm.greedy_generate``'s loop, also keeping each step's gap between
     the two largest logits: (tokens (B, max_new), gaps (B, max_new)) numpy."""
     from repro_torch.models import lm
@@ -665,7 +721,8 @@ def greedy_margins(cfg, params, tok, mask, max_new):
     toks, gaps = [], []
     with torch.inference_mode():
         caches = lm.init_caches(cfg, b, s + max_new, "cuda")
-        logits, caches = lm.apply_lm_prefill(cfg, params, tok, caches, attn_mask=mask)
+        logits, caches = lm.apply_lm_prefill(cfg, params, tok, caches, attn_mask=mask,
+                                             media=media)
         for i in range(max_new):
             if i:
                 logits, caches = lm.apply_lm_decode(cfg, params, toks[-1], caches, s + i - 1)
@@ -682,7 +739,7 @@ def phase_moe(engine, rx, pl2) -> dict:
     times and the decode bound, batch invariance, and the routing split."""
     from repro_torch.core import DEFAULT_LAMBDA_GRID
     from repro_torch.launch.serve import synthetic_pool_traffic, synthetic_requests
-    from repro_torch.models import lm, moe
+    from repro_torch.models import moe
     from repro_torch.serving.engine import pad_prompts, prompt_pad_mask
 
     names = [m.name for m in engine.pool]
@@ -741,44 +798,20 @@ def phase_moe(engine, rx, pl2) -> dict:
     prof = member_profile(member, tok, mask, "moe")
 
     # The prefill's capacity (factor 1.25) and one decode step's chosen experts.
-    drops, chosen = [], []
-    dispatch, router_probs = moe._dispatch_groups, moe._router_probs
-
-    def counting(*args, **kwargs):
-        out = dispatch(*args, **kwargs)
-        drops.append(out[2].sum())
-        return out
-
-    def choosing(p, x):
-        probs = router_probs(p, x)
-        chosen.append(torch.topk(probs, cfg.top_k, dim=-1).indices.unique().numel())
-        return probs
-
-    with torch.inference_mode():
-        caches = lm.init_caches(cfg, b, s + 1, "cuda")
-        moe._dispatch_groups = counting
-        try:
-            logits, caches = lm.apply_lm_prefill(cfg, member.params, tok, caches, mask)
-        finally:
-            moe._dispatch_groups = dispatch
-        nxt = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
-        moe._router_probs = choosing
-        try:
-            lm.apply_lm_decode(cfg, member.params, nxt, caches, s)
-        finally:
-            moe._router_probs = router_probs
+    dropped = _prefill_drops(member, tok, mask)
+    chosen = _decode_experts(member, tok, mask)
+    router_probs = moe._router_probs
     n_real = int(mask.sum())
-    dropped = int(torch.stack(drops).sum())
     log(f"[moe] prefill capacity: {dropped} of {n_real * cfg.top_k * n_moe} real (token, "
         f"expert) assignments dropped over {n_moe} MoE layers ({n_real} real tokens, "
         f"capacity factor {cfg.capacity_factor}, one group per row)")
     all_ms, by, all_bytes = decode_step_bound(member, b, s + 1, n_moe * cfg.n_experts)
-    read_ms, read_by, read_bytes = decode_step_bound(member, b, s + 1, sum(chosen))
+    read_ms, read_by, read_bytes = decode_step_bound(member, b, s + 1, chosen)
     expert_bytes = 4 * n_moe * cfg.n_experts * 3 * cfg.d_model * cfg.resolved_d_ff_expert
     log(f"[moe] decode step bound (B={b}, {s + 1} cached positions): all {n_moe} x "
         f"{cfg.n_experts} experts {expert_bytes / 1e9:.3f} GB, the step {all_bytes / 1e9:.3f} GB "
-        f"-> {all_ms:.4f} ms ({by}); the {sum(chosen)} experts this step's tokens chose "
-        f"({sum(chosen) / n_moe:.2f} per layer): {read_bytes / 1e9:.3f} GB -> {read_ms:.4f} ms "
+        f"-> {all_ms:.4f} ms ({by}); the {chosen} experts this step's tokens chose "
+        f"({chosen / n_moe:.2f} per layer): {read_bytes / 1e9:.3f} GB -> {read_ms:.4f} ms "
         f"({read_by}); measured step {prof['decode_step_ms']:.2f} ms, device busy "
         f"{prof['decode_busy_ms']:.2f} ms (bound / busy {read_ms / prof['decode_busy_ms']:.3f})")
 
@@ -821,27 +854,6 @@ def _keep_router_gap(probs, k, margins):
     return probs
 
 
-def build_attn_pool():
-    """qwen3-0.6b, qwen1.5-4b and gemma3-27b at full width, fp32, on the
-    card, gemma3-27b cut in depth to ``WINDOW_MEMBER_LAYERS`` layers (its
-    pattern once, then its remainder); seeds and the published configs'
-    cost rates as ``build_pool`` gives them."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
-    from repro_torch.launch.serve import build_pool
-    from repro_torch.models import lm
-    from repro_torch.serving.engine import PoolMember, arch_cost_rate
-
-    pool = build_pool(ATTN_POOL[:-1], seed=0, device="cuda")
-    full = get_config(WINDOW_MEMBER)
-    cfg = dataclasses.replace(full, n_layers=WINDOW_MEMBER_LAYERS, n_repeats=1)
-    gen = torch.Generator(device="cuda").manual_seed(len(pool))
-    pool.append(PoolMember(name=WINDOW_MEMBER, cfg=cfg, params=lm.init_lm(gen, cfg),
-                           cost_rate=arch_cost_rate(full)))
-    return pool
-
-
 def _flash_band(s, window) -> str:
     """The k chunks each q chunk of a flash prefill of ``s`` visits."""
     from repro_torch.models import attention as attn_mod
@@ -857,8 +869,6 @@ def phase_attn_long(rx, pl2) -> dict:
     serving and routing through router_xattn; gemma3's long prompts alone
     and batched; one full-width gemma3 layer's flash vs dense and ring vs
     full cache; prefill and decode times of the two new members."""
-    import dataclasses
-
     from repro_torch.common.tree import flatten_with_paths
     from repro_torch.core import DEFAULT_LAMBDA_GRID
     from repro_torch.launch import serve as serve_mod
@@ -872,7 +882,7 @@ def phase_attn_long(rx, pl2) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    pool = build_attn_pool()
+    pool = build_cut_pool(ATTN_POOL, cut_depth(n_layers=WINDOW_MEMBER_LAYERS))
     torch.cuda.synchronize()
     t_pool = time.perf_counter() - t0
     for m in pool:
@@ -1064,28 +1074,6 @@ def phase_attn_long(rx, pl2) -> dict:
     return {"launches": launches, "max_abs_err": errs, "times": times}
 
 
-def build_recurrent_pool():
-    """qwen3-0.6b and xlstm-1.3b at published size, and jamba-1.5-large at
-    published width cut in depth to the ``JAMBA_CUT`` layers of its 8-layer
-    block (mamba+MLP, attn+MoE), fp32, on the card; seeds and the published
-    configs' cost rates as ``build_pool`` gives them."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
-    from repro_torch.launch.serve import build_pool
-    from repro_torch.models import lm
-    from repro_torch.serving.engine import PoolMember, arch_cost_rate
-
-    pool = build_pool(RECURRENT_POOL[:-1], seed=0, device="cuda")
-    full = get_config(JAMBA_MEMBER)
-    pattern = full.pattern[JAMBA_CUT]
-    cfg = dataclasses.replace(full, n_layers=len(pattern), pattern=pattern, n_repeats=1)
-    gen = torch.Generator(device="cuda").manual_seed(len(pool))
-    pool.append(PoolMember(name=JAMBA_MEMBER, cfg=cfg, params=lm.init_lm(gen, cfg),
-                           cost_rate=arch_cost_rate(full)))
-    return pool
-
-
 def _decode_experts(member, tok, mask) -> int:
     """The experts one decode step's tokens choose, summed over the MoE
     layers (0 without MoE)."""
@@ -1104,7 +1092,8 @@ def _decode_experts(member, tok, mask) -> int:
     b, s = tok.shape
     with torch.inference_mode():
         caches = lm.init_caches(cfg, b, s + 1, "cuda")
-        logits, caches = lm.apply_lm_prefill(cfg, member.params, tok, caches, mask)
+        logits, caches = lm.apply_lm_prefill(cfg, member.params, tok, caches, mask,
+                                             media=member.batch_media(b))
         nxt = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
         moe._router_probs = choosing
         try:
@@ -1134,7 +1123,7 @@ def phase_recurrent(rx, pl2) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    pool = build_recurrent_pool()
+    pool = build_cut_pool(RECURRENT_POOL, cut_depth(layers=JAMBA_CUT))
     torch.cuda.synchronize()
     t_pool = time.perf_counter() - t0
     for m in pool:
@@ -1337,6 +1326,302 @@ def phase_recurrent(rx, pl2) -> dict:
         f"batch of long prompts")
     del engine, pool
     return {"launches": launches, "max_abs_err": errs, "times": times}
+
+
+def build_cut_pool(names, cut):
+    """A pool on the card, fp32: ``build_pool``'s members of ``names[:-1]``
+    at published size, then the last member at published width cut in depth
+    by ``cut`` (its published config -> the cut one), with its seed, stub
+    media and published cost rate drawn as ``build_pool`` draws them."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_pool, stub_media
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import PoolMember, arch_cost_rate
+
+    pool = build_pool(names[:-1], seed=0, device="cuda")
+    full = get_config(names[-1])
+    cfg = cut(full)
+    gen = torch.Generator(device="cuda").manual_seed(len(pool))
+    params = lm.init_lm(gen, cfg)
+    pool.append(PoolMember(name=names[-1], cfg=cfg, params=params,
+                           cost_rate=arch_cost_rate(full), media=stub_media(cfg, gen)))
+    return pool
+
+
+def cut_depth(n_layers=None, layers=None):
+    """A ``cut`` for :func:`build_cut_pool`: one repeat of the published
+    pattern, the pattern's ``layers`` slice, or ``n_layers`` layers of it."""
+    def cut(full):
+        pattern = full.pattern if layers is None else full.pattern[layers]
+        return dataclasses.replace(full, pattern=pattern, n_repeats=1,
+                                   n_layers=n_layers or len(pattern))
+    return cut
+
+
+def memory(tag, what) -> None:
+    log(f"[{tag}] device memory {what}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated, {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak")
+
+
+def _prefill_drops(member, tok, mask) -> int:
+    """Real (token, expert) assignments one prefill's capacity drops."""
+    from repro_torch.models import lm, moe
+
+    drops, dispatch = [], moe._dispatch_groups
+
+    def counting(*args, **kwargs):
+        out = dispatch(*args, **kwargs)
+        drops.append(out[2].sum())
+        return out
+
+    b, s = tok.shape
+    with torch.inference_mode():
+        moe._dispatch_groups = counting
+        try:
+            lm.apply_lm_prefill(member.cfg, member.params, tok,
+                                lm.init_caches(member.cfg, b, s + 1, "cuda"), mask,
+                                media=member.batch_media(b))
+        finally:
+            moe._dispatch_groups = dispatch
+    return int(torch.stack(drops).sum()) if drops else 0
+
+
+def phase_multimodal(rx, pl2) -> dict:
+    """The last three configs: smoke musicgen, llama4 and llama-3.2-vision
+    card vs CPU; pools A and B in turn (``multimodal_pool``), each freed
+    before the next is built (checked < 1 GiB left)."""
+    t_phase = time.perf_counter()
+    for name in (MUSIC_MEMBER, LLAMA4_MEMBER, VISION_MEMBER):
+        for lengths in ((5, 17, 9), (600,)):
+            smoke_card_vs_cpu(name, lengths, "multimodal")
+    rx.router_xattn_cuda.launches = 0
+    pl2.pairwise_l2_cuda.launches = 0
+    by_pool, errs, times = {}, {}, {}
+    for label, names in MULTIMODAL_POOLS:
+        by_pool[label], pool_errs, pool_times = multimodal_pool(label, names, rx, pl2)
+        errs.update(pool_errs)
+        times.update(pool_times)
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() / 2**30
+        check(left < 1.0, f"{left:.2f} GiB still allocated after pool {label} was freed")
+        log(f"[multimodal] pool {label} freed: {left:.2f} GiB allocated "
+            f"({time.perf_counter() - t_phase:.1f}s into the phase)")
+    launches = {"router_xattn": rx.router_xattn_cuda.launches,
+                "pairwise_l2": pl2.pairwise_l2_cuda.launches}
+    check(launches["router_xattn"] >= 1, "the multimodal path launched router_xattn")
+    return {"launches": launches, "launches_by_pool": by_pool, "max_abs_err": errs,
+            "times": times}
+
+
+def multimodal_pool(label, names, rx, pl2) -> tuple:
+    """One pool of ``build_cut_pool`` with its router trained through
+    ``train_engine``: 8 requests served, each member but the first
+    generating them too (MoE decode drop log set), the routing split of the
+    240 held-out queries through router_xattn (1e-5 against the plain
+    predictor); on pool A the vision checks; prefill and decode times of
+    the members but the first at S 1024, B 1 and 8, against their decode
+    bounds. Returns (launches, max |err|s, times); the pool is released on
+    return."""
+    from repro_torch.common.tree import flatten_with_paths
+    from repro_torch.core import DEFAULT_LAMBDA_GRID
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import pad_prompts, prompt_pad_mask
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pool = build_cut_pool(names, cut_depth())
+    torch.cuda.synchronize()
+    log(f"[multimodal] pool {label} built in {time.perf_counter() - t0:.2f}s")
+    for m in pool:
+        n = sum(p.numel() for p in flatten_with_paths(m.params).values())
+        plan = " ".join(f"{sp.mixer}+{sp.ffn}" for sp in m.cfg.layer_plan())
+        if len(set(m.cfg.layer_plan())) == 1:
+            plan = f"{plan.split()[0]} x {m.cfg.n_layers}"
+        log(f"[multimodal] {m.name}: {m.cfg.n_layers} layers {plan}, d_model={m.cfg.d_model}, "
+            f"{m.cfg.n_heads}/{m.cfg.n_kv_heads} heads of {m.cfg.resolved_head_dim}, vocab "
+            f"{m.cfg.vocab_size}; {n / 1e9:.4f}B params ({4 * n / 2**30:.2f} GiB) fp32 "
+            f"(counted for $: {m.cfg.param_count() / 1e9:.4f}B); $ {m.cost_rate:.6g} per request"
+            + ("" if m.media is None else f"; stub media {tuple(m.media.shape)}"))
+    memory("multimodal", f"after pool {label}'s build")
+    t0 = time.perf_counter()
+    engine = serve_mod.train_engine(pool, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[multimodal] pool {label} router trained on the card through train_engine in "
+        f"{time.perf_counter() - t0:.2f}s (K = {engine.router.n_members})")
+
+    # The path: serve 8 requests, each member but the first generates them, the split.
+    before = (rx.router_xattn_cuda.launches, pl2.pairwise_l2_cuda.launches)
+    data, _, _ = serve_mod.synthetic_pool_traffic(engine.pool, seed=0)
+    _, _, te = data.split(seed=0)
+    vocab = min(m.cfg.vocab_size for m in engine.pool)
+    texts, prompts = serve_mod.synthetic_requests(N_REQUESTS, vocab, seed=0)
+    moe.DECODE_DROP_LOG = []
+    try:
+        t_serve, res = _synced(lambda: engine.serve(texts, prompts, max_new=MAX_NEW))
+        gens = [(mi, *_synced(lambda mi=mi: engine.generate_member(mi, prompts,
+                                                                  max_new=MAX_NEW)))
+                for mi in range(1, len(engine.pool))]
+        drop_log = list(moe.DECODE_DROP_LOG)
+    finally:
+        moe.DECODE_DROP_LOG = None
+    s_hat, c_hat = engine.score_emb(data.emb[te])
+    torch.cuda.synchronize()
+    launches = {"router_xattn": rx.router_xattn_cuda.launches - before[0],
+                "pairwise_l2": pl2.pairwise_l2_cuda.launches - before[1]}
+    check(launches["router_xattn"] == 2, f"pool {label}: the serve and the routing split "
+          f"launched router_xattn {launches['router_xattn']} times, not 2")
+    served = [(int(res["choices"][i]), out) for i, out in enumerate(res["outputs"])]
+    served += [(mi, out) for mi, _, (outs, _) in gens for out in outs]
+    for mi, out in served:
+        cfg = engine.pool[mi].cfg
+        check(len(out) == MAX_NEW and 0 <= int(out.min()) and int(out.max()) < cfg.vocab_size,
+              f"pool {label}: {len(out)} tokens in {names[mi]}'s vocab")
+    s_plain, c_plain = engine.router.predict(data.emb[te])
+    e = float(np.abs(s_hat - s_plain).max())
+    check(np.allclose(s_hat, s_plain, rtol=1e-5, atol=1e-5),
+          f"router_xattn K={len(names)} on pool {label}'s router, max |err| {e:.3g}")
+    check(np.array_equal(c_hat, c_plain), "cost path identical on both scoring paths")
+    log(f"[multimodal] router_xattn K={len(names)} B={len(te)} on the trained params: max "
+        f"|err| {e:.3g} vs the plain predictor (tol 1e-5); launches on the path: router_xattn "
+        f"{launches['router_xattn']} (serve 1, split 1), pairwise_l2 {launches['pairwise_l2']}")
+    rows = [(lam, np.bincount(engine.choose(s_hat, c_hat, lam), minlength=len(names)))
+            for lam in DEFAULT_LAMBDA_GRID]
+    log(f"[multimodal] routing split of the {len(te)} held-out queries, counts "
+        f"{'/'.join(names)} per lambda:")
+    for i in range(0, len(rows), 5):
+        log("[multimodal]   " + "; ".join(f"{lam:.3g}: " + "/".join(str(int(c)) for c in counts)
+                                          for lam, counts in rows[i:i + 5]))
+    for mi, name in enumerate(names):
+        lams = [lam for lam, counts in rows if counts[mi] > 0]
+        log(f"[multimodal] {name} is chosen at {len(lams)} of {len(rows)} lambdas"
+            + (f", from {min(lams):.3g} to {max(lams):.3g}" if lams else ""))
+    log(f"[multimodal] pool {label} engine.serve: {N_REQUESTS} requests, prompts "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens drawn below the pool's "
+        f"least vocab ({vocab}), max_new={MAX_NEW}, wall {t_serve:.3f}s; per-member counts "
+        + ", ".join(f"{n}={int(c)}" for n, c in zip(names, res["per_member_counts"]))
+        + f"; total $ {res['total_cost']:.6g}")
+    for mi, t_gen, (_, costs) in gens:
+        log(f"[multimodal] pool {label} generate_member {names[mi]}: {N_REQUESTS} requests, "
+            f"wall {t_gen:.3f}s, $ {costs.sum():.6g}")
+    # One drop-log entry per MoE layer and decode step of each generate call.
+    n_calls = sum(sum(1 for sp in m.cfg.layer_plan() if sp.ffn == "moe") * (MAX_NEW - 1)
+                  * (int(res["per_member_counts"][mi] > 0) + int(mi > 0))
+                  for mi, m in enumerate(engine.pool))
+    check(len(drop_log) == n_calls and not any(drop_log),
+          f"pool {label} decode drop log {drop_log}: {n_calls} calls of 0 expected")
+    if n_calls:
+        log(f"[multimodal] pool {label} MoE decode drop log: {len(drop_log)} calls (MoE "
+            f"layers x {MAX_NEW - 1} steps x generate calls), all 0")
+    memory("multimodal", f"after pool {label}'s serve")
+
+    errs = {f"pool {label} router_xattn vs plain predictor": e}
+    if VISION_MEMBER in names:
+        errs.update(vision_checks(engine.pool[names.index(VISION_MEMBER)]))
+    times = {}
+    for m in engine.pool[1:]:
+        rng = np.random.default_rng(43)
+        n_moe = sum(1 for sp in m.cfg.layer_plan() if sp.ffn == "moe")
+        n_x = sum(1 for sp in m.cfg.layer_plan() if sp.mixer == "xattn")
+        for b in (1, 8):
+            p = [rng.integers(0, m.cfg.vocab_size, size=MULTIMODAL_TIMES_S, dtype=np.int32)
+                 for _ in range(b)]
+            tok, mask = pad_prompts(p, m.cfg).cuda(), prompt_pad_mask(p, m.cfg).cuda()
+            tag = f"{m.name} B={b} S={MULTIMODAL_TIMES_S}"
+            torch.cuda.reset_peak_memory_stats()
+            prof = member_profile(m, tok, mask, "multimodal")
+            memory("multimodal", f"after {tag}")
+            s_kv = tok.shape[1] + MAX_NEW - 1
+            chosen = _decode_experts(m, tok, mask)
+            bound_ms, by, n_bytes = decode_step_bound(m, b, s_kv, chosen)
+            busy = prof["decode_busy_ms"]
+            entry = {**prof, "decode_bound_ms": bound_ms, "decode_bound_by": by}
+            if n_moe:
+                all_ms, all_by, all_bytes = decode_step_bound(m, b, s_kv, n_moe * m.cfg.n_experts)
+                drops = _prefill_drops(m, tok, mask)
+                n_real = int(mask.sum()) * m.cfg.top_k * n_moe
+                entry.update(decode_bound_all_experts_ms=all_ms, prefill_drops=drops,
+                             prefill_assignments=n_real)
+                log(f"[multimodal] {tag}: prefill capacity drops {drops} of {n_real} real "
+                    f"(token, expert) assignments (factor {m.cfg.capacity_factor}); decode step "
+                    f"bound with the {chosen} experts its tokens chose {n_bytes / 1e9:.3f} GB -> "
+                    f"{bound_ms:.4f} ms ({by}), with all {m.cfg.n_experts} as the decode rule "
+                    f"reads them {all_bytes / 1e9:.3f} GB -> {all_ms:.4f} ms ({all_by}); device "
+                    f"busy {busy:.2f} ms (bound / busy {bound_ms / busy:.3f} with the chosen, "
+                    f"{all_ms / busy:.3f} with all)")
+            else:
+                media_kv = 4 * 2 * b * n_x * m.cfg.n_frontend_tokens * m.cfg.n_kv_heads \
+                    * m.cfg.resolved_head_dim
+                log(f"[multimodal] {tag} decode step bound {n_bytes / 1e9:.3f} GB"
+                    + (f" (media K/V {media_kv / 1e6:.1f} MB)" if n_x else "")
+                    + f" -> {bound_ms:.4f} ms ({by}); device busy {busy:.2f} ms (bound / busy "
+                    f"{bound_ms / busy:.3f})")
+            times[tag] = entry
+    return launches, errs, times
+
+
+def vision_checks(member) -> dict:
+    """The vision member's prompts as one left-padded batch and each alone,
+    with its stub media; the full-width cross layer's decode step on the
+    prefilled media cache against the full sequence's last position."""
+    from repro_torch.configs.base import XATTN, LayerSpec
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.serving.engine import pad_prompts, prompt_pad_mask
+
+    cfg = member.cfg
+    rng = np.random.default_rng(37)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32) for n in VISION_PROMPTS]
+    tok, mask = pad_prompts(prompts, cfg).cuda(), prompt_pad_mask(prompts, cfg).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t_batch, (batch_toks, batch_gaps) = _synced(lambda: greedy_margins(
+        cfg, member.params, tok, mask, MAX_NEW, member.batch_media(len(prompts))))
+    log(f"[multimodal] {member.name} prompts {list(VISION_PROMPTS)} as one left-padded batch "
+        f"(S {tok.shape[1]}) with the stub media: {t_batch:.3f}s for {MAX_NEW} tokens each")
+    scores = len(prompts) * cfg.n_heads * tok.shape[1] * cfg.n_frontend_tokens * 4
+    memory("multimodal", f"after the vision batch (B {len(prompts)}, S {tok.shape[1]}; dense "
+                         f"cross-attention scores {scores / 2**30:.2f} GiB a copy)")
+    parts = []
+    for i, p in enumerate(prompts):
+        t_alone, (alone, alone_gaps) = _synced(lambda p=p: greedy_margins(
+            cfg, member.params, pad_prompts([p], cfg).cuda(),
+            prompt_pad_mask([p], cfg).cuda(), MAX_NEW, member.batch_media(1)))
+        same = np.array_equal(alone[0], batch_toks[i])
+        log(f"[multimodal]   {len(p)} tokens alone: {t_alone:.3f}s, "
+            + ("equal to its batch tokens" if same else "parts from its batch tokens"))
+        if same:
+            continue
+        j = int(np.flatnonzero(alone[0] != batch_toks[i])[0])
+        gap = float(min(alone_gaps[0, j], batch_gaps[i, j]))
+        parts.append(i)
+        log(f"[multimodal]   request {i} alone parts from the batch at token {j}: logit "
+            f"margin {gap:.3g}")
+        check(gap <= 1e-4, f"{len(p)}-token vision request alone parts from the batch at "
+                           f"token {j} with logit margin {gap:.3g} above 1e-4")
+    log(f"[multimodal] each vision request alone vs in the batch: "
+        f"{len(prompts) - len(parts)} of {len(prompts)} equal"
+        + (f"; parts at near ties: requests {parts}" if parts else ""))
+
+    b, s = CROSS_CHECK
+    li = next(i for i, sp in enumerate(cfg.layer_plan()) if sp.mixer == XATTN)
+    p = member.params["layers"][li]["mixer"]
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda")
+    media = member.batch_media(b)
+    with torch.inference_mode():
+        t_full, full = _synced(lambda: attn_mod.cross_attention_full_seq(cfg, p, x, media))
+        cache = attn_mod.prefill_cross_cache(
+            cfg, p, media, attn_mod.init_kv_cache(cfg, LayerSpec(mixer=XATTN), b, 1, "cuda"))
+        t_step, (step, _) = _synced(lambda: attn_mod.cross_attention_decode(
+            cfg, p, x[:, -1:], cache))
+    e = float((step - full[:, -1:]).abs().max())
+    check(e <= 1e-5, f"full-width cross layer {li}: decode vs full sequence max |err| {e:.3g}")
+    log(f"[multimodal] full-width {member.name} cross layer {li} ({cfg.n_frontend_tokens} media "
+        f"tokens of {cfg.frontend_dim}, {cfg.n_heads}/{cfg.n_kv_heads} heads), B {b}, S {s}: "
+        f"cross_attention_decode on the prefilled cache vs cross_attention_full_seq's last "
+        f"position max |err| {e:.3g} (tol 1e-5); full {t_full * 1e3:.2f} ms, step "
+        f"{t_step * 1e3:.2f} ms (host clock, one call)")
+    return {"cross decode vs full sequence": e}
 
 
 def mixer_shares(member, tok, mask) -> dict:
@@ -1657,8 +1942,6 @@ def phase_table2(rx, ref) -> dict:
     """Paper Table 2 on pool1: trained routers, baselines and the oracle, each
     with AIQ and perf_max over the lambda grid; the card's attention training
     against the CPU's from the same initial params; the kernel at K = 5."""
-    import dataclasses
-
     from repro_torch.core import (
         DEFAULT_LAMBDA_GRID, aiq, build_model_embeddings, evaluate_sweep, oracle_sweep,
     )
@@ -1880,6 +2163,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[recurrent] phase wall {time.perf_counter() - t0:.2f}s")
 
+    left = torch.cuda.memory_allocated() / 2**30
+    check(left < 1.0, f"{left:.2f} GiB still allocated after the recurrent pool was freed")
+    log(f"[multimodal] recurrent pool freed: {left:.2f} GiB allocated")
+    t0 = time.perf_counter()
+    multimodal = phase_multimodal(rx, pl2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[multimodal] phase wall {time.perf_counter() - t0:.2f}s")
+
     t0 = time.perf_counter()
     table2 = phase_table2(rx, ref)
     log(f"[table2] phase wall {time.perf_counter() - t0:.2f}s")
@@ -1897,7 +2189,8 @@ def main() -> int:
                              "trace": trace["launches"]["router_xattn"],
                              "train": train["launches"], "table2": table2["launches"],
                              "attn_long": attn_long["launches"]["router_xattn"],
-                             "recurrent": recurrent["launches"]["router_xattn"]},
+                             "recurrent": recurrent["launches"]["router_xattn"],
+                             "multimodal": multimodal["launches"]["router_xattn"]},
         "max_abs_err_trained": {"train": train["max_abs_err"],
                                 "table2": table2["timing"]["max_abs_err"]},
         "max_abs_err": err["float32"], "max_abs_err_bf16": err["bfloat16"],
@@ -1914,7 +2207,8 @@ def main() -> int:
                              "trace": trace["launches"]["pairwise_l2"],
                              "lookup": lookup["launches"],
                              "attn_long": attn_long["launches"]["pairwise_l2"],
-                             "recurrent": recurrent["launches"]["pairwise_l2"]},
+                             "recurrent": recurrent["launches"]["pairwise_l2"],
+                             "multimodal": multimodal["launches"]["pairwise_l2"]},
         "max_abs_err": pl2_err["float32"], "max_abs_err_bf16": pl2_err["bfloat16"],
         **window,
         "library_call": "torch.cdist(x, c).square(), a yardstick: cdist takes a "

@@ -1,13 +1,14 @@
 """Architecture registry of the port.
 
 ``get_config(name)`` returns the full published config; ``get_smoke_config``
-the reduced same-family variant the CPU tests use. Ported so far: the
-reference's default serve pool (qwen3-0.6b, granite-3-8b and the
-mixture-of-experts granite-moe-1b-a400m), qwen1.5-4b (QKV bias),
-gemma3-27b (sliding-window locals), xlstm-1.3b (sLSTM and mLSTM) and
-the jamba hybrid (Mamba, attention and MoE). The reference's other three
-architectures wait in ROADMAP.md's Queue 1 (item 6) and raise
-``NotImplementedError`` here.
+the reduced same-family variant the CPU tests use. All ten of the
+reference's architectures: its default serve pool (qwen3-0.6b,
+granite-3-8b and the mixture-of-experts granite-moe-1b-a400m), qwen1.5-4b
+(QKV bias), gemma3-27b (sliding-window locals), xlstm-1.3b (sLSTM and
+mLSTM), the jamba hybrid (Mamba, attention and MoE), musicgen-large,
+llama4-maverick (128 experts top-1 with a shared expert) and
+llama-3.2-vision (cross attention to stub media). An unknown name raises
+``KeyError``, as in the reference.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ from repro_torch.configs.base import ArchConfig
 
 ARCH_IDS: List[str] = ["qwen3-0.6b", "granite-moe-1b-a400m", "granite-3-8b",
                        "qwen1.5-4b", "gemma3-27b", "xlstm-1.3b",
-                       "jamba-1.5-large-398b"]
+                       "jamba-1.5-large-398b", "musicgen-large",
+                       "llama4-maverick-400b-a17b", "llama-3.2-vision-90b"]
 
 _MODULES: Dict[str, str] = {
     "qwen3-0.6b": "qwen3_0_6b",
@@ -28,14 +30,15 @@ _MODULES: Dict[str, str] = {
     "gemma3-27b": "gemma3_27b",
     "xlstm-1.3b": "xlstm_1_3b",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "musicgen-large": "musicgen_large",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "llama-3.2-vision-90b": "llama_3_2_vision_90b",
 }
 
 
 def _module(name: str):
     if name not in _MODULES:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP.md Queue 1, item 6); "
-            f"ported: {ARCH_IDS}")
+        raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
 
 

@@ -8,9 +8,9 @@ port runs the plan as a plain loop over layers.
 :meth:`ArchConfig.param_count` counts as the reference does: the serving
 engine's $ cost rates derive from it, so both packages must price every
 member the same: the port copies the count term for term, also where it
-differs from the reference's own init (ROADMAP.md Queue 3). The
-attention, MoE, Mamba and xLSTM fields are here; the modality fields
-come with cross attention.
+differs from the reference's own init (ROADMAP.md Queue 3). Every
+field of the reference but ``supports_long_context`` and ``max_seq_len``
+is here (those come back with the per-config shape accounting).
 """
 from __future__ import annotations
 
@@ -90,6 +90,10 @@ class ArchConfig:
     xlstm_expand: int = 2              # mLSTM up-projection factor
     xlstm_ff_factor: float = 2.6667    # sLSTM post-FFN factor (~4/3 * 2)
 
+    # Modality frontend stubs (cross attention's media).
+    n_frontend_tokens: int = 0         # image patches / audio frames per item
+    frontend_dim: int = 0              # raw embedding dim from the stub encoder
+
     # Layer plan.
     pattern: Tuple[LayerSpec, ...] = (LayerSpec(),)
     n_repeats: int = 1
@@ -156,22 +160,21 @@ class ArchConfig:
         derive from it): the sLSTM FFN counts ``int(2·d·d·ff_factor)``, not
         the init's width rounded up to 256; the mLSTM term leaves out the
         conv, skip and gate biases; an FFN-less block still counts ``2·d``
-        of norms."""
+        of norms; a cross-attention block counts its projector
+        ``frontend_dim·d`` but not the projector's norm."""
         d, hd = self.d_model, self.resolved_head_dim
         total = self.padded_vocab * d          # embedding table
         total += self.padded_vocab * d         # separate lm head
         for spec in self.layer_plan():
-            if spec.mixer == XATTN:
-                raise NotImplementedError(
-                    f"{self.name}: xattn blocks are not ported yet "
-                    "(ROADMAP.md Queue 1, item 6)")
             total += 2 * d                     # pre-mixer + pre-ffn norms
-            if spec.mixer == ATTN:
+            if spec.mixer in (ATTN, XATTN):
                 total += d * self.n_heads * hd     # q
                 total += 2 * d * self.n_kv_heads * hd  # k, v
                 total += self.n_heads * hd * d     # o
                 if self.qkv_bias:
                     total += (self.n_heads + 2 * self.n_kv_heads) * hd
+                if spec.mixer == XATTN and self.frontend_dim:
+                    total += self.frontend_dim * d  # modality projector
             elif spec.mixer == MAMBA:
                 di, ds, dtr = self.ssm_d_inner, self.ssm_d_state, self.resolved_dt_rank
                 total += d * 2 * di            # in_proj (x, z)

@@ -7,6 +7,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --pool qwen3-0.6b,xlstm-1.3b,jamba-1.5-large-398b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
+        --pool qwen3-0.6b,musicgen-large,llama-3.2-vision-90b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
         --trace neardup --semcache --requests 200
 
 builds the pool members at their published widths and depths on the CUDA
@@ -48,6 +50,7 @@ import torch
 from repro_torch.checkpoint import load_router, save_router
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs.base import XATTN
 from repro_torch.core.clustering import kmeans
 from repro_torch.core.model_repr import N_CLUSTERS, build_model_embeddings
 from repro_torch.core.predictors import PREDICTORS
@@ -75,6 +78,17 @@ _WORDS = ("prove", "integral", "python", "function", "poem", "summarize",
           "proof", "biology", "economics", "sort", "graph")
 
 
+def stub_media(cfg, gen: torch.Generator) -> Optional[torch.Tensor]:
+    """The carve-out encoder's stand-in for a config with cross-attention
+    layers: (1, n_frontend_tokens, frontend_dim) standard normal, drawn from
+    ``gen`` on its device, as the reference's ``launch/train.py`` draws one
+    stub per run. None for a config without cross attention."""
+    if not cfg.has_mixer(XATTN):
+        return None
+    return torch.randn((1, cfg.n_frontend_tokens, cfg.frontend_dim),
+                       generator=gen, device=gen.device)
+
+
 def build_pool(names: Sequence[str], seed: int = 0,
                device: Optional[DeviceLike] = None,
                smoke: bool = False) -> List[PoolMember]:
@@ -82,16 +96,21 @@ def build_pool(names: Sequence[str], seed: int = 0,
 
     ``smoke=False`` builds the published configs. Cost rates always come
     from the published configs: the economics the router weighs are those
-    of the real architectures.
+    of the real architectures. A member with cross-attention layers (a vlm)
+    also gets its :func:`stub_media`, drawn after its params from the same
+    seed, which every request it serves reads: the reference's serving
+    path passes no media and cannot serve such a member (ROADMAP.md
+    Queue 3).
     """
     device = resolve_device(device)
     members = []
     for i, name in enumerate(names):
         cfg = get_smoke_config(name) if smoke else get_config(name)
         gen = torch.Generator(device=device).manual_seed(seed + i)
+        params = lm_mod.init_lm(gen, cfg)
         members.append(PoolMember(
-            name=name, cfg=cfg, params=lm_mod.init_lm(gen, cfg),
-            cost_rate=arch_cost_rate(get_config(name)),
+            name=name, cfg=cfg, params=params,
+            cost_rate=arch_cost_rate(get_config(name)), media=stub_media(cfg, gen),
         ))
     return members
 

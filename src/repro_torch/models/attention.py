@@ -1,13 +1,14 @@
-"""Grouped-query causal self attention: full and sliding-window, with a
-linear or ring KV cache.
+"""Grouped-query attention: causal self attention, full and sliding-window,
+with a linear or ring KV cache, and cross attention to stub media.
 
-The port of ``repro.models.attention`` for its self-attention members:
+The port of ``repro.models.attention``:
 
   * GQA with any (n_heads, n_kv_heads)          [all dense members]
   * QKV bias                                    [qwen1.5-4b]
   * qk RMSNorm over ``head_dim``                [qwen3-0.6b, gemma3-27b]
   * logit softcap ``tanh(s / c) * c``           [none of the pool; unit-tested]
   * sliding window with a ring-buffer cache     [gemma3-27b locals]
+  * cross attention to projected media tokens   [llama-3.2-vision]
 
 Prefill takes dense attention below ``FLASH_MIN_SEQ`` tokens and the
 chunked online-softmax ``flash_attention`` from there, as the reference
@@ -15,8 +16,11 @@ does: a Python loop over q chunks, each over its band of k chunks only,
 so a windowed layer skips the chunks left of its window. Decode reads a
 preallocated cache with per-slot positions (``slot_pos``) and per-row pad
 validity (``pad_valid``) for left-padded batches; windowed layers keep a
-ring of ``min(window, max_len)`` slots. Cross attention (llama-3.2-vision)
-is not ported yet (ROADMAP.md Queue 1, item 6) and is refused here.
+ring of ``min(window, max_len)`` slots. Cross attention projects the
+media, ``(B, n_frontend_tokens, frontend_dim)`` from the stub encoder,
+through ``w_proj`` and an RMSNorm, attends to all of it densely (no RoPE,
+no mask), and keeps its K/V in a cache of one slot per media token that
+prefill fills once and decode only reads.
 
 The port updates the KV cache in place, where the reference returns a new
 cache; the functions still return the cache so the call sites read alike.
@@ -28,7 +32,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ATTN, XATTN, ArchConfig, LayerSpec
+from repro_torch.configs.base import XATTN, ArchConfig, LayerSpec
 from repro_torch.models.layers import apply_rmsnorm, apply_rope, dense_init, init_rmsnorm
 
 # Masked logits. Finite on purpose: a left-padded row's pad queries see only
@@ -43,15 +47,16 @@ FLASH_MIN_SEQ = 2048
 FLASH_CHUNK = 1024
 
 
-def check_supported(cfg: ArchConfig, spec: LayerSpec) -> None:
-    """Raise for the attention mixers this port does not run yet."""
-    if spec.mixer == XATTN:
-        raise NotImplementedError(
-            "cross attention (XATTN) is not ported yet; it comes with "
-            "llama-3.2-vision (ROADMAP.md Queue 1, item 6)")
-    if spec.mixer != ATTN:
-        raise NotImplementedError(
-            f"mixer {spec.mixer!r} is not ported yet (ROADMAP.md Queue 1, item 6)")
+def check_frontend(cfg: ArchConfig) -> None:
+    """Raise unless ``cfg`` can carry a cross-attention layer: its projector
+    maps ``frontend_dim``-wide media into ``d_model`` and its cache holds
+    ``n_frontend_tokens`` slots. The reference makes such a layer without
+    the projector and fails later, with a ``KeyError`` on ``w_proj``."""
+    if cfg.frontend_dim <= 0 or cfg.n_frontend_tokens <= 0:
+        raise ValueError(
+            f"{cfg.name}: a cross-attention (XATTN) layer needs frontend_dim > 0 "
+            f"and n_frontend_tokens > 0 (the media its projector reads); got "
+            f"frontend_dim={cfg.frontend_dim}, n_frontend_tokens={cfg.n_frontend_tokens}")
 
 
 # ---------------------------------------------------------------------------
@@ -59,8 +64,11 @@ def check_supported(cfg: ArchConfig, spec: LayerSpec) -> None:
 # ---------------------------------------------------------------------------
 
 def init_attention(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec) -> Dict:
-    """Seeded projections; QKV biases start at zero, as in the reference."""
-    check_supported(cfg, spec)
+    """Seeded projections; QKV biases start at zero, as in the reference. A
+    cross-attention layer also gets the media projector ``w_proj`` and its
+    norm ``proj_norm``."""
+    if spec.mixer == XATTN:
+        check_frontend(cfg)
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     dev = gen.device
     p = {
@@ -76,6 +84,9 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec) -> Di
     if cfg.qk_norm:
         p["q_norm"] = init_rmsnorm(hd, dev)
         p["k_norm"] = init_rmsnorm(hd, dev)
+    if spec.mixer == XATTN:
+        p["w_proj"] = dense_init(gen, cfg.frontend_dim, d)
+        p["proj_norm"] = init_rmsnorm(d, dev)
     return p
 
 
@@ -222,9 +233,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def init_kv_cache(cfg: ArchConfig, spec: LayerSpec, batch: int, max_len: int,
                   device) -> Dict:
     """Preallocated fp32 cache: ``max_len`` slots, or a ring of
-    ``min(window, max_len)`` for a sliding-window layer."""
-    check_supported(cfg, spec)
+    ``min(window, max_len)`` for a sliding-window layer, or one slot per
+    media token (no positions, no pads) for a cross-attention layer."""
     hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    if spec.mixer == XATTN:
+        check_frontend(cfg)
+        n = cfg.n_frontend_tokens
+        return {
+            "k": torch.zeros((batch, n, hkv, hd), dtype=torch.float32, device=device),
+            "v": torch.zeros((batch, n, hkv, hd), dtype=torch.float32, device=device),
+        }
     length = min(spec.window, max_len) if spec.window > 0 else max_len
     return {
         "k": torch.zeros((batch, length, hkv, hd), dtype=torch.float32, device=device),
@@ -281,7 +299,6 @@ def self_attention_prefill(cfg: ArchConfig, spec: LayerSpec, p: Dict,
     logits depend only on position differences, so masking pad keys makes
     a left-padded row attend exactly as its unpadded self.
     """
-    check_supported(cfg, spec)
     b, s, _ = x.shape
     q = apply_rope(_project_q(cfg, p, x), positions, cfg.rope_theta)
     k, v = _project_kv(cfg, p, x)
@@ -319,7 +336,6 @@ def self_attention_decode(cfg: ArchConfig, spec: LayerSpec, p: Dict,
                           x: torch.Tensor, cache: Dict,
                           pos: int) -> Tuple[torch.Tensor, Dict]:
     """One-token decode. x (B,1,D); ``pos`` one position for the whole batch."""
-    check_supported(cfg, spec)
     b = x.shape[0]
     pos_b = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(_project_q(cfg, p, x), pos_b, cfg.rope_theta)
@@ -334,3 +350,53 @@ def self_attention_decode(cfg: ArchConfig, spec: LayerSpec, p: Dict,
     mask = valid[None, None, :] & cache["pad_valid"][:, None, :]
     out = dense_attention(q, cache["k"], cache["v"], mask, cfg.attn_logit_softcap)
     return out.reshape(b, 1, -1) @ p["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# Cross attention to media tokens
+# ---------------------------------------------------------------------------
+
+def _media_kv(cfg: ArchConfig, p: Dict,
+              media: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Keys and values of the projected media: RMSNorm(media @ w_proj),
+    then the layer's K/V projections. No RoPE across modalities."""
+    mtok = apply_rmsnorm(p["proj_norm"], media @ p["w_proj"], cfg.norm_eps)
+    return _project_kv(cfg, p, mtok)
+
+
+def _attend_media(cfg: ArchConfig, p: Dict, x: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> torch.Tensor:
+    b, s, _ = x.shape
+    out = dense_attention(_project_q(cfg, p, x), k, v, None, cfg.attn_logit_softcap)
+    return out.reshape(b, s, -1) @ p["wo"]
+
+
+def cross_attention_full_seq(cfg: ArchConfig, p: Dict, x: torch.Tensor,
+                             media: torch.Tensor) -> torch.Tensor:
+    """Text queries x (B,S,D) attend to every projected media token;
+    ``media`` (B, n_frontend_tokens, frontend_dim) from the stub encoder."""
+    return _attend_media(cfg, p, x, *_media_kv(cfg, p, media))
+
+
+def prefill_cross_cache(cfg: ArchConfig, p: Dict, media: torch.Tensor,
+                        cache: Dict) -> Dict:
+    """Write the projected media's keys and values into the cross cache."""
+    k, v = _media_kv(cfg, p, media)
+    cache["k"].copy_(k)
+    cache["v"].copy_(v)
+    return cache
+
+
+def cross_attention_prefill(cfg: ArchConfig, p: Dict, x: torch.Tensor,
+                            media: torch.Tensor, cache: Dict
+                            ) -> Tuple[torch.Tensor, Dict]:
+    """:func:`cross_attention_full_seq` that also fills the cross cache,
+    projecting the media once where the reference projects it twice."""
+    cache = prefill_cross_cache(cfg, p, media, cache)
+    return _attend_media(cfg, p, x, cache["k"], cache["v"]), cache
+
+
+def cross_attention_decode(cfg: ArchConfig, p: Dict, x: torch.Tensor,
+                           cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """One-token decode: x (B,1,D) reads the prefilled media cache."""
+    return _attend_media(cfg, p, x, cache["k"], cache["v"]), cache

@@ -1,21 +1,30 @@
-"""Decoder LM over a layer plan of attention, Mamba, mLSTM and sLSTM blocks,
-each with a SwiGLU MLP, an MoE FFN or none.
+"""Decoder LM over a layer plan of self-attention, cross-attention, Mamba,
+mLSTM and sLSTM blocks, each with a SwiGLU MLP, an MoE FFN or none.
 
-The port of ``repro.models.lm`` for the pool members ported so far: the
-reference's default serve pool (qwen3-0.6b, granite-3-8b and the
+The port of ``repro.models.lm`` for all ten of the reference's configs:
+its default serve pool (qwen3-0.6b, granite-3-8b and the
 mixture-of-experts granite-moe), qwen1.5-4b (QKV bias), gemma3-27b (5:1
 local:global, sliding-window locals on a ring cache), xlstm-1.3b (sLSTM
-and mLSTM blocks without an FFN) and the jamba hybrid (Mamba and
-attention, MLP and MoE). The reference stacks the repeated ``pattern``'s
+and mLSTM blocks without an FFN), the jamba hybrid (Mamba and attention,
+MLP and MoE), musicgen-large, llama4-maverick (MLP and MoE layers in
+turn, top-1 with a shared expert) and llama-3.2-vision (four
+self-attention layers, then one cross-attention layer). The reference stacks the repeated ``pattern``'s
 parameters on a leading ``n_repeats`` axis, with the ``remainder`` apart,
 and scans over it; here the plan is a plain loop over
 ``params["layers"]``, one parameter dict per layer in
 :meth:`ArchConfig.layer_plan` order (:mod:`repro_torch.bridge` unstacks
 the reference's tree into this layout). Each layer's decode cache is made
 for its spec: a ring of ``min(window, max_len)`` slots for a windowed
-attention layer, a linear KV cache for another attention layer, the
-recurrent state for a Mamba, mLSTM or sLSTM layer. Cross attention
-(XATTN) is not ported yet and is refused.
+attention layer, a linear KV cache for another attention layer, one slot
+per media token for a cross-attention layer, the recurrent state for a
+Mamba, mLSTM or sLSTM layer.
+
+Media: a config with cross-attention (XATTN) layers prefills with
+``media`` (B, n_frontend_tokens, frontend_dim), the stub encoder's
+output; without it :func:`apply_lm_prefill` raises ``ValueError``, where
+the reference fails on ``None @ w_proj``. Other configs ignore ``media``.
+It is keyword-only everywhere: the reference takes it before ``attn_mask``,
+so a positional copy of a reference call fails at the signature.
 
 Entry points:
   * prefill: full prompt -> last-position logits + decode caches (dense
@@ -31,7 +40,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import (
-    ATTN, MAMBA, MLP, MLSTM, MOE, NONE, SLSTM, ArchConfig, LayerSpec,
+    ATTN, MAMBA, MLP, MLSTM, MOE, NONE, SLSTM, XATTN, ArchConfig, LayerSpec,
 )
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -60,11 +69,22 @@ _RECURRENT = {
 }
 
 
-def _check_block(spec: LayerSpec) -> None:
-    if spec.mixer != ATTN and spec.mixer not in _RECURRENT:
-        raise NotImplementedError(
-            f"block {spec.mixer}+{spec.ffn} is not ported yet; cross attention "
-            "comes with llama-3.2-vision (ROADMAP.md Queue 1, item 6)")
+_ATTENTION = (ATTN, XATTN)
+
+
+def check_media(cfg: ArchConfig, media: Optional[torch.Tensor], batch: int) -> None:
+    """Raise unless ``media`` is what ``cfg``'s cross-attention layers read:
+    (batch, n_frontend_tokens, frontend_dim). A config without them takes
+    any ``media``, as the reference does, and ignores it."""
+    if not cfg.has_mixer(XATTN):
+        return
+    want = (batch, cfg.n_frontend_tokens, cfg.frontend_dim)
+    if media is None or tuple(media.shape) != want:
+        got = None if media is None else tuple(media.shape)
+        raise ValueError(
+            f"{cfg.name} has cross-attention (XATTN) layers: prefill needs media "
+            f"of shape (B, n_frontend_tokens, frontend_dim) = {want}, got {got}; "
+            "a served vlm member gets launch/serve.py::build_pool's seeded stub")
 
 
 def prefill_width(cfg: ArchConfig, s: int) -> int:
@@ -86,8 +106,7 @@ def prefill_width(cfg: ArchConfig, s: int) -> int:
 # ---------------------------------------------------------------------------
 
 def init_block(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec) -> Dict:
-    _check_block(spec)
-    mixer = (attn_mod.init_attention(gen, cfg, spec) if spec.mixer == ATTN
+    mixer = (attn_mod.init_attention(gen, cfg, spec) if spec.mixer in _ATTENTION
              else _RECURRENT[spec.mixer].init(gen, cfg))
     p = {"norm1": init_rmsnorm(cfg.d_model, gen.device), "mixer": mixer}
     if spec.ffn != NONE:
@@ -99,8 +118,7 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec) -> Dict:
 
 def init_block_cache(cfg: ArchConfig, spec: LayerSpec, batch: int, max_len: int,
                      device) -> Dict:
-    _check_block(spec)
-    if spec.mixer == ATTN:
+    if spec.mixer in _ATTENTION:
         return attn_mod.init_kv_cache(cfg, spec, batch, max_len, device)
     return _RECURRENT[spec.mixer].init_cache(cfg, batch, device)
 
@@ -127,19 +145,24 @@ def _apply_ffn_decode(cfg: ArchConfig, spec: LayerSpec, p: Dict,
     return x + moe_mod.apply_moe_decode(cfg, p["ffn"], h)
 
 
-def apply_block_prefill(cfg, spec, p, x, positions, cache, attn_mask=None):
+def apply_block_prefill(cfg, spec, p, x, positions, cache, attn_mask=None, *,
+                        media=None):
     """Full-prompt pass that also fills this block's decode cache.
 
     ``attn_mask`` (B, S) bool marks real tokens of a left-padded batch:
     attention masks pad keys and records them invalid in the cache per
     row; the recurrent mixers make pad steps identity updates of their
-    state, which is the decode cache.
+    state, which is the decode cache. Cross attention reads ``media``
+    unmasked: a pad query's output reaches no real token, since later
+    layers mask pad keys.
     """
     h = apply_rmsnorm(p["norm1"], x, cfg.norm_eps)
     if spec.mixer == ATTN:
         y, cache = attn_mod.self_attention_prefill(cfg, spec, p["mixer"], h,
                                                    positions, cache,
                                                    kv_valid=attn_mask)
+    elif spec.mixer == XATTN:
+        y, cache = attn_mod.cross_attention_prefill(cfg, p["mixer"], h, media, cache)
     else:
         y, state = _RECURRENT[spec.mixer].prefill(cfg, p["mixer"], h, mask=attn_mask)
         cache.update(state)
@@ -150,6 +173,8 @@ def apply_block_decode(cfg, spec, p, x, pos: int, cache):
     h = apply_rmsnorm(p["norm1"], x, cfg.norm_eps)
     if spec.mixer == ATTN:
         y, cache = attn_mod.self_attention_decode(cfg, spec, p["mixer"], h, cache, pos)
+    elif spec.mixer == XATTN:
+        y, cache = attn_mod.cross_attention_decode(cfg, p["mixer"], h, cache)
     else:
         y, cache = _RECURRENT[spec.mixer].decode(cfg, p["mixer"], h, cache)
     return _apply_ffn_decode(cfg, spec, p, x + y), cache
@@ -167,8 +192,6 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Dict:
     since torch's and JAX's generators do.
     """
     plan = cfg.layer_plan()
-    for spec in plan:
-        _check_block(spec)
     return {
         "embedding": init_embedding(gen, cfg.padded_vocab, cfg.d_model),
         "final_norm": init_rmsnorm(cfg.d_model, gen.device),
@@ -194,7 +217,8 @@ def seed_qkv_biases(params: Dict, cfg: ArchConfig, seed: int = 7) -> Dict:
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, device) -> List[Dict]:
     """One decode cache per layer, in layer-plan order: a ring for a
     sliding-window layer, ``max_len`` linear slots for another attention
-    layer, the recurrent state for a Mamba, mLSTM or sLSTM layer."""
+    layer, ``n_frontend_tokens`` slots for a cross-attention layer, the
+    recurrent state for a Mamba, mLSTM or sLSTM layer."""
     return [init_block_cache(cfg, spec, batch, max_len, device)
             for spec in cfg.layer_plan()]
 
@@ -206,18 +230,21 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
 
 
 def apply_lm_prefill(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
-                     caches: List[Dict], attn_mask: Optional[torch.Tensor] = None
+                     caches: List[Dict], attn_mask: Optional[torch.Tensor] = None,
+                     *, media: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, List[Dict]]:
     """Prefill: full forward + cache build. Returns (last logits (B,1,V), caches).
 
     ``attn_mask`` (B, S) bool marks real tokens of a left-padded batch
-    (None = all real).
+    (None = all real). ``media`` (B, n_frontend_tokens, frontend_dim) is
+    what the cross-attention layers read (:func:`check_media`).
     """
+    check_media(cfg, media, tokens.shape[0])
     x = embed_tokens(params["embedding"], tokens)
     positions = _positions(tokens)
     for spec, p, cache in zip(cfg.layer_plan(), params["layers"], caches):
         x, _ = apply_block_prefill(cfg, spec, p, x, positions, cache,
-                                   attn_mask=attn_mask)
+                                   attn_mask=attn_mask, media=media)
     x_last = apply_rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     return lm_logits(params["embedding"], x_last), caches
 
@@ -235,19 +262,21 @@ def apply_lm_decode(cfg: ArchConfig, params: Dict, token: torch.Tensor,
 
 @torch.inference_mode()
 def greedy_generate(cfg: ArchConfig, params: Dict, prompt: torch.Tensor,
-                    max_new: int,
-                    attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    max_new: int, *,
+                    attn_mask: Optional[torch.Tensor] = None,
+                    media: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Greedy decoding: (B, S) prompt -> (B, max_new) int32 tokens.
 
     ``attn_mask`` (B, S) bool marks real prompt tokens of a left-padded
     batch, so each request's output is invariant to its batch neighbours.
+    ``media`` feeds the cross-attention layers (:func:`apply_lm_prefill`).
     The argmax runs over ``vocab_size``, not the padded vocab, and takes
     the first maximum, as ``jnp.argmax`` does.
     """
     b, s = prompt.shape
     caches = init_caches(cfg, b, s + max_new, prompt.device)
     logits, caches = apply_lm_prefill(cfg, params, prompt, caches,
-                                      attn_mask=attn_mask)
+                                      attn_mask=attn_mask, media=media)
     tok = torch.argmax(logits[:, -1, : cfg.vocab_size], dim=-1)[:, None]
     out = [tok]
     for i in range(max_new - 1):

@@ -48,21 +48,32 @@ def arch_cost_rate(cfg, tokens_out: int = REF_TOKENS_OUT) -> float:
 
 @dataclasses.dataclass
 class PoolMember:
+    """One member of the pool. ``media`` (1, n_frontend_tokens,
+    frontend_dim) is a member's stub media, given to every request it
+    serves, for a config with cross-attention layers (``build_pool``
+    makes it); None otherwise."""
+
     name: str
     cfg: object
     params: Dict
     cost_rate: float
+    media: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
         return self.params["embedding"]["table"].device
+
+    def batch_media(self, batch: int) -> Optional[torch.Tensor]:
+        """The stub media expanded over ``batch`` rows (a view), or None."""
+        return None if self.media is None else self.media.expand(batch, -1, -1)
 
     def generate(self, prompts: torch.Tensor, max_new: int = 8,
                  attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         mask = None if attn_mask is None else attn_mask.to(self.device)
         return lm_mod.greedy_generate(self.cfg, self.params,
                                       prompts.to(self.device), max_new,
-                                      attn_mask=mask)
+                                      attn_mask=mask,
+                                      media=self.batch_media(prompts.shape[0]))
 
 
 def _batch_width(prompts: Sequence[np.ndarray], cfg) -> int:

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain versions, training, the
-mixture-of-experts member, sliding-window and long-prompt attention, and
-the recurrent members (xlstm-1.3b, the jamba hybrid), on the card.
+mixture-of-experts member, sliding-window and long-prompt attention, the
+recurrent members (xlstm-1.3b, the jamba hybrid), and the last three
+configs (musicgen-large, llama4-maverick, cross attention with
+llama-3.2-vision and its stub media), on the card.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (marker ``cuda``) and
 skips without one: a CUDA kernel has no CPU mode. The file imports no JAX,
@@ -22,8 +24,8 @@ from repro_torch.kernels.pairwise_l2 import pairwise_l2_cuda
 from repro_torch.kernels.router_xattn import router_xattn_cuda
 from repro_torch.common.tree import tree_map
 from repro_torch.configs import get_smoke_config
-from repro_torch.launch.serve import DEFAULT_POOL, build_engine, synthetic_requests
-from repro_torch.configs.base import ATTN, MLP, LayerSpec
+from repro_torch.launch.serve import DEFAULT_POOL, build_engine, stub_media, synthetic_requests
+from repro_torch.configs.base import ATTN, MLP, XATTN, LayerSpec
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import lm, moe, ssm, xlstm
 from repro_torch.serving.engine import RoutedEngine, pad_prompts, prompt_pad_mask
@@ -514,26 +516,37 @@ def test_recurrent_members_on_the_card_equal_the_cpu(cuda, name, lengths):
     """Smoke xlstm-1.3b (600 tokens pad to 768, three mLSTM chunks) and
     jamba (Mamba, attention, MoE): prefill and two decode steps' logits
     within 1e-4 of the CPU's, greedy tokens equal."""
-    cfg = get_smoke_config(name)
-    params = lm.init_lm(torch.Generator().manual_seed(5), cfg)
+    _card_equals_cpu(cuda, get_smoke_config(name), lengths)
+
+
+def _card_equals_cpu(cuda, cfg, lengths):
+    """Seeded params (and stub media, for cross layers) on the card and on
+    the CPU: prefill of left-padded prompts of ``lengths`` and two decode
+    steps within 1e-4, greedy tokens equal."""
+    gen = torch.Generator().manual_seed(5)
+    params = lm.init_lm(gen, cfg)
     params_gpu = tree_map(lambda t: t.to(cuda), params)
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32) for n in lengths]
     tok, mask = pad_prompts(prompts, cfg), prompt_pad_mask(prompts, cfg)
     s = tok.shape[1]
+    media = stub_media(cfg, gen)
+    media = None if media is None else media.expand(len(prompts), -1, -1)
+    media_gpu = None if media is None else media.to(cuda)
     with torch.inference_mode():
         caches = {d: lm.init_caches(cfg, len(prompts), s + 3, d) for d in ("cpu", cuda)}
-        lg_cpu, _ = lm.apply_lm_prefill(cfg, params, tok, caches["cpu"], mask)
+        lg_cpu, _ = lm.apply_lm_prefill(cfg, params, tok, caches["cpu"], mask, media=media)
         lg_gpu, _ = lm.apply_lm_prefill(cfg, params_gpu, tok.to(cuda), caches[cuda],
-                                        mask.to(cuda))
+                                        mask.to(cuda), media=media_gpu)
         torch.testing.assert_close(lg_gpu.cpu(), lg_cpu, rtol=1e-4, atol=1e-4)
         nxt = torch.argmax(lg_cpu[:, -1, :cfg.vocab_size], -1)[:, None].to(torch.int32)
         for i in range(2):
             lg_cpu, _ = lm.apply_lm_decode(cfg, params, nxt, caches["cpu"], s + i)
             lg_gpu, _ = lm.apply_lm_decode(cfg, params_gpu, nxt.to(cuda), caches[cuda], s + i)
             torch.testing.assert_close(lg_gpu.cpu(), lg_cpu, rtol=1e-4, atol=1e-4)
-    t_gpu = lm.greedy_generate(cfg, params_gpu, tok.to(cuda), 4, attn_mask=mask.to(cuda))
-    t_cpu = lm.greedy_generate(cfg, params, tok, 4, attn_mask=mask)
+    t_gpu = lm.greedy_generate(cfg, params_gpu, tok.to(cuda), 4, attn_mask=mask.to(cuda),
+                               media=media_gpu)
+    t_cpu = lm.greedy_generate(cfg, params, tok, 4, attn_mask=mask, media=media)
     assert torch.equal(t_gpu.cpu(), t_cpu)
 
 
@@ -593,3 +606,62 @@ def test_build_engine_serves_the_recurrent_pool_on_the_card(cuda):
         outs, costs = engine.generate_member(mi, long, max_new=3)
         assert all(len(o) == 3 and 0 <= o.min() and o.max() < 512 for o in outs)
         assert np.all(costs > 0)
+
+
+# ---------------------------------------------------------------------------
+# musicgen-large, llama4-maverick and cross attention on the card
+# ---------------------------------------------------------------------------
+
+MULTIMODAL = ["musicgen-large", "llama4-maverick-400b-a17b", "llama-3.2-vision-90b"]
+
+
+@pytest.mark.parametrize("name", MULTIMODAL)
+@pytest.mark.parametrize("lengths", [(5, 17, 9), (600, 40)])
+def test_multimodal_members_on_the_card_equal_the_cpu(cuda, name, lengths):
+    """Smoke musicgen, llama4 (top-1 MoE with a shared expert) and
+    llama-3.2-vision with its stub media: prefill and two decode steps'
+    logits within 1e-4 of the CPU's, greedy tokens equal."""
+    _card_equals_cpu(cuda, get_smoke_config(name), lengths)
+
+
+def test_cross_decode_equals_the_full_sequence_on_the_card(cuda):
+    """Smoke vision's cross layer: the decode step on the prefilled media
+    cache equals the full sequence's last position (1e-5), and the card's
+    full sequence the CPU's."""
+    cfg = get_smoke_config("llama-3.2-vision-90b")
+    p = attn_mod.init_attention(torch.Generator().manual_seed(0), cfg, LayerSpec(mixer=XATTN))
+    pg = tree_map(lambda a: a.to(cuda), p)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((3, 40, cfg.d_model), generator=gen)
+    media = torch.randn((3, cfg.n_frontend_tokens, cfg.frontend_dim), generator=gen)
+    full = attn_mod.cross_attention_full_seq(cfg, pg, x.to(cuda), media.to(cuda))
+    cache = attn_mod.prefill_cross_cache(
+        cfg, pg, media.to(cuda), attn_mod.init_kv_cache(cfg, LayerSpec(mixer=XATTN), 3, 1, cuda))
+    step, _ = attn_mod.cross_attention_decode(cfg, pg, x[:, -1:].to(cuda), cache)
+    torch.testing.assert_close(step, full[:, -1:], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(full.cpu(), attn_mod.cross_attention_full_seq(cfg, p, x, media),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("names", [["qwen3-0.6b", "musicgen-large", "llama-3.2-vision-90b"],
+                                   ["qwen3-0.6b", "llama4-maverick-400b-a17b"]],
+                         ids=["pool-A", "pool-B"])
+def test_build_engine_serves_the_multimodal_pools_on_the_card(cuda, names, monkeypatch):
+    """Pools A and B at smoke size: the router trains on the card and
+    scores through the kernel; the vision member's stub media lies on the
+    card; every member but qwen3 generates, llama4's decode drops nothing."""
+    engine = build_engine(names, smoke=True, device=cuda, epochs=3)
+    for m in engine.pool:
+        assert (m.media is not None) == m.cfg.has_mixer(XATTN)
+        assert m.media is None or m.media.device.type == "cuda"
+    texts, prompts = synthetic_requests(6, 512, seed=1, min_len=3, max_len=20)
+    monkeypatch.setattr(moe, "DECODE_DROP_LOG", [])
+    before = router_xattn_cuda.launches
+    engine.serve(texts, prompts, max_new=4)
+    assert router_xattn_cuda.launches == before + 1
+    for mi in range(1, len(names)):
+        outs, costs = engine.generate_member(mi, prompts, max_new=3)
+        assert all(len(o) == 3 and 0 <= o.min() and o.max() < 512 for o in outs)
+        assert np.all(costs > 0)
+    assert not any(moe.DECODE_DROP_LOG)
+    assert ("llama4-maverick-400b-a17b" in names) == bool(moe.DECODE_DROP_LOG)

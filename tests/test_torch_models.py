@@ -207,25 +207,43 @@ def test_rmsnorm_rope_mlp_match_reference():
 
 
 def test_unported_options_raise():
-    """What stays unported raises, naming ROADMAP: the three configs left
-    and cross attention (XATTN), as a block, a cache, and in the count."""
-    cfg = get_smoke_config("qwen3-0.6b")
-    for name in ("musicgen-large", "llama4-maverick-400b-a17b", "llama-3.2-vision-90b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(name)
+    """Every config and mixer of the reference is ported; what the port
+    still refuses is a cross-attention (XATTN) config run without its
+    media, and an XATTN layer in a config with no frontend. Prefill or
+    generation of smoke llama-3.2-vision without ``media`` (or with media
+    of the wrong shape) raises ``ValueError`` naming the rule, where the
+    reference fails on ``None @ w_proj``; an XATTN layer with
+    ``frontend_dim`` 0 raises at init, as a block, a cache and an
+    attention layer, where the reference would fail later with a
+    ``KeyError`` on ``w_proj``. The count prices it as the reference does."""
+    cfg = get_smoke_config("llama-3.2-vision-90b")
+    params = lm.init_lm(torch.Generator().manual_seed(0), cfg)
+    tok = torch.zeros((2, 5), dtype=torch.int32)
+    with pytest.raises(ValueError, match="XATTN.*media"):
+        lm.apply_lm_prefill(cfg, params, tok, lm.init_caches(cfg, 2, 6, "cpu"))
+    with pytest.raises(ValueError, match="XATTN.*media"):
+        lm.greedy_generate(cfg, params, tok, 2)
+    wrong = torch.zeros((1, cfg.n_frontend_tokens, cfg.frontend_dim))
+    with pytest.raises(ValueError, match=r"\(2, 16, 64\), got \(1, 16, 64\)"):
+        lm.greedy_generate(cfg, params, tok, 2, media=wrong)
+    no_frontend = dataclasses.replace(cfg, frontend_dim=0)
     xattn = LayerSpec(mixer="xattn", ffn="mlp")
-    with pytest.raises(NotImplementedError, match="XATTN.*llama-3.2-vision"):
-        attn_mod.init_kv_cache(cfg, xattn, 1, 4, "cpu")
-    with pytest.raises(NotImplementedError, match="XATTN"):
-        attn_mod.init_attention(torch.Generator(), cfg, xattn)
+    with pytest.raises(ValueError, match="XATTN.*frontend_dim"):
+        attn_mod.init_kv_cache(no_frontend, xattn, 1, 4, "cpu")
+    with pytest.raises(ValueError, match="XATTN.*frontend_dim"):
+        attn_mod.init_attention(torch.Generator(), no_frontend, xattn)
     for ffn in ("mlp", "moe", "none"):
         spec = LayerSpec(mixer="xattn", ffn=ffn)
-        with pytest.raises(NotImplementedError, match="xattn.*item 6"):
-            lm.init_block(torch.Generator(), cfg, spec)
-        with pytest.raises(NotImplementedError, match="xattn.*item 6"):
-            lm.init_block_cache(cfg, spec, 1, 4, "cpu")
-        with pytest.raises(NotImplementedError, match="item 6"):
-            dataclasses.replace(cfg, pattern=(spec,), n_layers=2).param_count()
+        with pytest.raises(ValueError, match="frontend_dim > 0"):
+            lm.init_block(torch.Generator(), no_frontend, spec)
+        with pytest.raises(ValueError, match="frontend_dim > 0"):
+            lm.init_block_cache(no_frontend, spec, 1, 4, "cpu")
+        plan = dict(pattern=(spec,), n_layers=1)
+        assert (dataclasses.replace(no_frontend, **plan).param_count()
+                == dataclasses.replace(jax_get_smoke("llama-3.2-vision-90b"), frontend_dim=0,
+                                       **plan).param_count())
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("llama-3.2-vision-11b")
 
 
 def test_bridge_orders_a_remainder_after_the_repeats():
