@@ -47,7 +47,28 @@ Phases (any failure raises and exits non-zero before the last line):
      the training split against the router's k-means centroids.
  10. lookup: a deployment-size cache (cap 4096, at least 512 entries)
      answers 64 queries through the kernel; its hits equal a CPU twin's.
- 11. attn_long: with the default pool freed, smoke qwen1.5-4b (nonzero QKV
+ 11. online: on the same pool, ``launch/serve.py::make_adapter`` (drift
+     detector of window 48 fitted on the training split, an update every
+     32 outcomes, epsilon 0.05, seed 0, feedback from the truth lookup):
+     a 192-request ``drift`` trace (every request accounted for, outcomes
+     equal to the generate legs, updates published by swap, the live
+     router's tensors bitwise unchanged across every ``run_steps``,
+     ``router_xattn`` on the newest router within 1e-5 of the plain
+     predictor over 64 held-out queries); ms per incremental step with the
+     device's busy time; 96 requests with staged feedback (0.01 virtual s
+     late, jitter 0.005: every outcome resolves, none expires); then
+     qwen1.5-4b at published size hot-added (K = 4, ``router_xattn`` within
+     1e-5; 64 requests in which the probationary member is never the
+     exploit argmax) and removed (memory back within 0.1 GiB).
+ 12. cascade: an ``attn-ens`` router trained on the same pool through
+     ``train_engine``; ``make_cascade`` (cost ladder ascending in the
+     scaler's mu, 3 legs, observed quality from the truth lookup) with the
+     semantic cache as rung 0 on a 96-request ``neardup`` trace at lambda
+     5e-4 (escalations, ``finalized_by_leg`` summing to the completed
+     requests, each request's $ the sum of its legs, rung-0 stops equal to
+     the cache's served count); then the adapter and the cascade together
+     on 48 requests (the adapter observes every leg).
+ 13. attn_long: with the default pool freed, smoke qwen1.5-4b (nonzero QKV
      biases) and gemma3-27b (window 8) on the card against the CPU at 17 and
      2048 tokens (1e-4); a pool of qwen3-0.6b, qwen1.5-4b and gemma3-27b at
      full width, fp32, gemma3 cut to 8 layers (7 local with window 1024, 1
@@ -61,7 +82,7 @@ Phases (any failure raises and exits non-zero before the last line):
      cache against a full cache across the wrap (1e-4); prefill and decode
      step of qwen1.5-4b and gemma3 at S 1536, 2048 and 4096 with the
      device's busy time and the decode step's bytes bound.
- 12. recurrent: with the attention pool freed, smoke xlstm-1.3b and the
+ 14. recurrent: with the attention pool freed, smoke xlstm-1.3b and the
      jamba hybrid on the card against the CPU at 17 and 600 tokens (xlstm
      pads 600 to 768; 1e-4); a pool of qwen3-0.6b, xlstm-1.3b at published
      size (48 layers, sLSTM:mLSTM 1:7) and jamba-1.5-large at published
@@ -81,7 +102,7 @@ Phases (any failure raises and exits non-zero before the last line):
      bound (weights, the K/V cache, the recurrent state read and written)
      and xlstm's sLSTM and mLSTM shares of prefill (one layer of each timed
      alone, times its count).
- 13. multimodal: with the recurrent pool freed, smoke musicgen-large,
+ 15. multimodal: with the recurrent pool freed, smoke musicgen-large,
      llama4-maverick and llama-3.2-vision (with seeded stub media) on the
      card against the CPU at 17 and 600 tokens (1e-4); then two pools in
      turn, each built by ``build_cut_pool`` (``build_pool``, then the cut
@@ -106,19 +127,22 @@ Phases (any failure raises and exits non-zero before the last line):
      media K/V counted; for llama4 with the experts the tokens chose and
      with all 128, as the decode rule reads them) and llama4's prefill
      capacity drops; device memory after each build and each timing.
- 14. table2: the paper's Table 2 on pool1 (K = 5) with benchmarks/common.py's
+ 16. table2: the paper's Table 2 on pool1 (K = 5) with benchmarks/common.py's
      defaults (4000 queries, 300 epochs): the attention router and the MLP
      trained on the card, KNN (k = 20), SVM, LLM-Blender and the oracle, each
      with AIQ and perf_max over the 25-point lambda grid; the same attention
      quality predictor trained on the CPU from the same initial params must
      agree (losses rtol 1e-3, AIQ 5e-3); ``router_xattn`` on the trained
      params over the 1000 held-out queries (1e-5), timed.
-Each path (serve, moe, trace, lookup, attn_long, recurrent, multimodal) runs with every kernel's
-launch count set to 0 just before it and read just after; a kernel of the
-path that was not launched fails the run. The kernel checks on trained params (train,
-table2) are counted the same way. The second-to-last line is a JSON object
-with the kernels' numbers, the last ``{"ok": true, "device": {...}}``. The
-kernel libraries are built into build/repro_torch/ under the checkout.
+Each path (serve, moe, trace, lookup, online, cascade, attn_long,
+recurrent, multimodal) runs with every kernel's launch count set to 0 just
+before it and read just after; a kernel of the path that was not launched
+fails the run (the cascade's ``attn-ens`` router scores on the plain
+predictor, as the reference's does, so only ``pairwise_l2`` runs there).
+The kernel checks on trained params (train, table2) are counted the same
+way. The second-to-last line is a JSON object with the kernels' numbers,
+the last ``{"ok": true, "device": {...}}``. The kernel libraries are built
+into build/repro_torch/ under the checkout.
 """
 from __future__ import annotations
 
@@ -157,6 +181,21 @@ TRACE_REQUESTS = 192
 DRIFT_WINDOW = 48
 LOOKUP_CAP = 4096
 LOOKUP_QUERIES = 64
+# [online] on the default pool: a drift trace with immediate feedback, a
+# trace with staged feedback (delivered 0.01 virtual s late, jitter up to
+# half that), then a published-size member hot-added and removed.
+ONLINE_REQUESTS = 192
+STAGED_REQUESTS = 96
+FEEDBACK_DELAY = 0.01
+HOTADD_MEMBER = "qwen1.5-4b"
+HOTADD_REQUESTS = 64
+HELD_OUT_CHECK = 64
+# [cascade] on the default pool with an attn-ens router: lambda on the pool's
+# $ per request scale (1e-4 to 1e-3), as the reference's cascade soak sets
+# it, so leg 1 prefers a cheap member and the ladder has room to climb.
+CASCADE_REQUESTS = 96
+COMPOSED_REQUESTS = 48
+CASCADE_LAM = 5e-4
 # [attn_long]: a pool of the attention members, gemma3-27b at full width cut
 # to one repeat of its 6-layer pattern (5 local, 1 global) plus its 2-local
 # remainder; the default pool is freed first.
@@ -1920,6 +1959,427 @@ def phase_lookup(radius, pl2) -> dict:
     return {"launches": launches, "entries": n, "card_ms": card_ms, "twin_ms": twin_ms}
 
 
+def _online_trace(kind, n, seed, data, te, vocab, **kw):
+    """A seeded open-loop trace over the held-out split at the serving shape
+    of ``[trace]``: 400/s, ``max_new`` 4, prompts of 8 to 96 tokens."""
+    from repro_torch.serving.traffic import TraceConfig, make_trace
+
+    return make_trace(TraceConfig(kind=kind, n_requests=n, rate=400.0, seed=seed, max_new=4,
+                                  prompt_len_min=8, prompt_len_max=96, vocab=vocab, **kw),
+                      [data.texts[i] for i in te], [data.benchmark[i] for i in te])
+
+
+class _Launches:
+    """Launch counts summed over the runs of one path: ``start`` sets both
+    counters to 0 just before a run, ``take`` adds them just after, so the
+    kernel checks between runs are not counted."""
+
+    def __init__(self, rx, pl2):
+        self.rx, self.pl2 = rx, pl2
+        self.total = {"router_xattn": 0, "pairwise_l2": 0}
+
+    def start(self):
+        self.rx.router_xattn_cuda.launches = 0
+        self.pl2.pairwise_l2_cuda.launches = 0
+
+    def take(self) -> dict:
+        got = {"router_xattn": self.rx.router_xattn_cuda.launches,
+               "pairwise_l2": self.pl2.pairwise_l2_cuda.launches}
+        for k, v in got.items():
+            self.total[k] += v
+        return got
+
+
+def _router_leaves(router) -> dict:
+    from repro_torch.common.tree import flatten_with_paths
+
+    return {**{"q/" + k: v for k, v in flatten_with_paths(router.quality_params).items()},
+            **{"c/" + k: v for k, v in flatten_with_paths(router.cost_params).items()}}
+
+
+def _kernel_vs_plain(engine, q, what) -> float:
+    """``router_xattn`` scores of ``q`` on the live router against its plain
+    predictor (1e-5); returns the max |err|."""
+    s_kernel, c_kernel = engine.score_emb(q)
+    s_plain, c_plain = engine.router.predict(q)
+    e = float(np.abs(s_kernel - s_plain).max())
+    check(s_kernel.shape == (len(q), engine.router.n_members),
+          f"{what}: scores {s_kernel.shape}")
+    check(np.allclose(s_kernel, s_plain, rtol=1e-5, atol=1e-5),
+          f"{what}: router_xattn vs the plain predictor, max |err| {e:.3g}")
+    check(np.array_equal(c_kernel, c_plain), f"{what}: cost path identical")
+    return e
+
+
+def _host_parts(engine, adapter) -> tuple:
+    """Wrap the engine's and the adapter's hooks (instance attributes shadow
+    the methods) to sum host seconds per part, each ending in a device sync;
+    returns (seconds by part, undo)."""
+    parts = {"featurizer": (engine, "embed"), "scoring": (engine, "score_emb"),
+             "exploration": (adapter, "choose"), "generation": (engine, "generate_member"),
+             "observe/_commit": (adapter, "observe"),
+             "update steps": (adapter.updater, "run_steps"),
+             "publish": (adapter.updater, "publish")}
+    secs = {name: 0.0 for name in parts}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            secs[name] += time.perf_counter() - t
+            return out
+        return wrapper
+
+    for name, (obj, attr) in parts.items():
+        setattr(obj, attr, timed(name, getattr(obj, attr)))
+
+    def undo():
+        for obj, attr in parts.values():
+            delattr(obj, attr)
+    return secs, undo
+
+
+def _log_parts(tag, secs, wall):
+    # observe runs _commit, which runs the update steps and the publish.
+    own = dict(secs)
+    own["observe/_commit"] -= secs["update steps"] + secs["publish"]
+    rest = wall - sum(own.values())
+    log(f"[{tag}] host wall {wall:.3f}s by part: " + ", ".join(
+        f"{name} {v:.3f}s ({v / wall:.4f})" for name, v in
+        [*own.items(), ("scheduler and the rest", rest)]))
+
+
+def phase_online(engine, rx, pl2) -> dict:
+    """Online adaptation on the default pool at published size: replay,
+    exploration, drift alarms, incremental updates published by swap,
+    staged feedback, and a published-size member hot-added and removed."""
+    from repro_torch.common.tree import flatten_with_paths
+    from repro_torch.data.routerbench import generate
+    from repro_torch.launch import serve
+    from repro_torch.serving.queue import DONE
+
+    t0 = time.perf_counter()
+    data = generate(1200, seed=0)
+    tr, _, te = data.split(seed=0)
+    train = data.emb[tr]
+    truth = serve.quality_truth(engine.pool, data)
+    vocab = min(m.cfg.vocab_size for m in engine.pool)
+    held_out = data.emb[te][:HELD_OUT_CHECK]
+    log(f"[online] corpus of 1200 and the truth lookup in {time.perf_counter() - t0:.2f}s")
+    counts = _Launches(rx, pl2)
+
+    # 1. a drift trace, feedback at completion.
+    trace = _online_trace("drift", ONLINE_REQUESTS, 0, data, te, vocab)
+    v0 = engine.router.version
+    counts.start()
+    t0 = time.perf_counter()
+    adapter = serve.make_adapter(engine, truth, train, window=DRIFT_WINDOW, seed=0)
+    sched = serve.build_scheduler(engine, score_batch=64, max_batch=8, max_wait_s=0.02,
+                                  queue_capacity=256, adapter=adapter, device="cuda")
+    t_setup = time.perf_counter() - t0
+    secs, undo = _host_parts(engine, adapter)
+    run_steps = adapter.updater.run_steps
+    unchanged, step_log = [], []
+
+    def checked_run_steps(replay, model_emb, n_steps):
+        live = engine.router
+        snap = {k: v.clone() for k, v in _router_leaves(live).items()}
+        memb = np.array(live.model_emb, copy=True)
+        out = run_steps(replay, model_emb, n_steps)
+        leaves = _router_leaves(live)
+        unchanged.append(engine.router is live and leaves.keys() == snap.keys()
+                         and all(torch.equal(leaves[k], v) for k, v in snap.items())
+                         and np.array_equal(live.model_emb, memb))
+        step_log.append(out["steps"])
+        return out
+
+    adapter.updater.run_steps = checked_run_steps
+    t0 = time.perf_counter()
+    try:
+        summary = sched.run_trace(trace)
+        torch.cuda.synchronize()
+    finally:
+        adapter.updater.run_steps = run_steps
+        undo()
+    wall = time.perf_counter() - t0
+    got = counts.take()
+    st = adapter.stats
+    n_done = summary["completed"] + summary["rejected"] + summary["expired"]
+    legs = sum(1 for r in trace if r.status == DONE and r.member >= 0)
+    check(n_done == ONLINE_REQUESTS, f"online trace accounts for {n_done} of {ONLINE_REQUESTS}")
+    check(st["outcomes"] == legs == summary["completed"],
+          f"outcomes {st['outcomes']} vs {legs} generate legs")
+    check(st["updates"] >= 1 and st["router_swaps"] == st["updates"],
+          f"updates {st['updates']}, swaps {st['router_swaps']}")
+    check(engine.router.version == v0 + st["router_swaps"],
+          f"router v{engine.router.version} after {st['router_swaps']} swaps from v{v0}")
+    check(len(unchanged) > 0 and all(unchanged),
+          "the live router's tensors unchanged across every run_steps")
+    check(sum(step_log) == st["update_steps"], "update steps counted")
+    check(got["router_xattn"] > 0, "the online path launched router_xattn")
+    windows = adapter.drift.windows_seen
+    check(windows >= ONLINE_REQUESTS // DRIFT_WINDOW and got["pairwise_l2"] >= 1 + windows,
+          f"pairwise_l2 launched {got['pairwise_l2']} times for {windows} drift windows")
+    for r in trace:
+        if r.status == DONE:
+            member = engine.pool[r.member]
+            check(len(r.output) == r.max_new and 0 <= int(r.output.min())
+                  and int(r.output.max()) < member.cfg.vocab_size,
+                  f"request {r.rid}: {len(r.output)} tokens in {member.name}'s vocab")
+    e_swap = _kernel_vs_plain(engine, held_out, f"after the last swap (v{engine.router.version})")
+    for line in sched.telemetry.report(summary.get("duration_s")).splitlines():
+        log(f"[online] {line}")
+    log(f"[online] {adapter.report()}")
+    log(f"[online] drift: {windows} windows, {adapter.drift.alarms} alarms; set-up (drift "
+        f"fit) {t_setup:.3f}s; trace of {ONLINE_REQUESTS} in {wall:.3f}s; losses quality "
+        f"{st['last_quality_loss']:.6g}, cost {st['last_cost_loss']:.6g}")
+    _log_parts("online", secs, wall)
+    log(f"[online] live router unchanged across all {len(unchanged)} run_steps calls; "
+        f"router_xattn on router v{engine.router.version}, {HELD_OUT_CHECK} held-out "
+        f"queries: max |err| {e_swap:.3g} vs the plain predictor (tol 1e-5)")
+    log(f"[online] launches: router_xattn {got['router_xattn']}, pairwise_l2 "
+        f"{got['pairwise_l2']} (fit + {windows} windows + refits)")
+
+    # The incremental step alone: host ms per step and the device's busy time.
+    upd, memb = adapter.updater, adapter.membership.model_emb
+    walls = [_synced(lambda: upd.run_steps(adapter.replay, memb, 8))[0] / 8 * 1e3
+             for _ in range(5)]
+    step_wall = float(np.median(walls))
+    busy, by_name = profile_device(lambda: upd.run_steps(adapter.replay, memb, 8))
+    step_busy = busy / 8
+    in_trace = secs["update steps"] / max(1, sum(step_log)) * 1e3
+    log(f"[online] incremental step (batch {adapter.config.batch_size}, quality + cost, one "
+        f"float() per loss): {step_wall:.4f} ms host per step (median of 5 x 8), device "
+        f"busy {step_busy:.4f} ms -> idle share {max(0.0, 1 - step_busy / step_wall):.3f}; "
+        f"in the trace {in_trace:.4f} ms per step")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:3]:
+        log(f"[online]   step {ms / 8:8.4f} ms  {name[:100]}")
+    result = {"wall_s": wall, "updates": st["updates"], "step_ms": step_wall,
+              "step_busy_ms": step_busy, "max_abs_err_after_swap": e_swap}
+
+    # 2. staged feedback, delivered late and out of order.
+    trace = _online_trace("poisson", STAGED_REQUESTS, 1, data, te, vocab)
+    counts.start()
+    t0 = time.perf_counter()
+    staged = serve.make_adapter(engine, truth, train, window=DRIFT_WINDOW,
+                                feedback_delay=FEEDBACK_DELAY, seed=0)
+    sched = serve.build_scheduler(engine, score_batch=64, max_batch=8, max_wait_s=0.02,
+                                  queue_capacity=256, adapter=staged, device="cuda")
+    summary = sched.run_trace(trace)
+    in_trace = staged.stats["delayed_resolved"]
+    # Drain the feedback channel: every delivery is due 1.5 delays after its
+    # request finished, before the stage's timeout of 20 delays.
+    staged.tick(sched.clock.now + 2 * FEEDBACK_DELAY)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    got = counts.take()
+    st = staged.stats
+    check(summary["completed"] == STAGED_REQUESTS, f"staged trace completed "
+          f"{summary['completed']} of {STAGED_REQUESTS}")
+    check(st["staged"] == STAGED_REQUESTS and st["delayed_resolved"] == st["staged"]
+          and st["outcomes"] == st["staged"] and len(staged.stage) == 0,
+          f"staged outcomes resolve: {staged.report()}")
+    check(st["feedback_expired"] == 0 and staged.feedback_source.in_flight == 0,
+          f"no staged outcome expired: {staged.report()}")
+    log(f"[online] staged (delay {FEEDBACK_DELAY}s, jitter {FEEDBACK_DELAY * 0.5}s): "
+        f"{staged.report()}; {in_trace} resolved during the trace, the rest at the drain; "
+        f"{wall2:.3f}s; launches router_xattn {got['router_xattn']}, pairwise_l2 "
+        f"{got['pairwise_l2']}")
+
+    # 3. a published-size member hot-added, served at K = 4, removed.
+    gc.collect()
+    base = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    (new,) = serve.build_pool([HOTADD_MEMBER], seed=len(engine.pool), device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    grown = torch.cuda.memory_allocated() / 2**30
+    n_new = sum(p.numel() for p in flatten_with_paths(new.params).values())
+    truth4 = serve.quality_truth(engine.pool + [new], data)
+    counts.start()
+    hot = serve.make_adapter(engine, truth4, train, window=DRIFT_WINDOW, seed=0)
+    idx = hot.add_member(new)
+    got_add = counts.take()
+    del new
+    check(idx == 3 and engine.router.n_members == 4 and len(engine.pool) == 4
+          and hot.membership.in_probation(idx), "hot add: K = 4, the new member probationary")
+    check(engine.pool[idx].device.type == "cuda", "the new member's weights on the card")
+    v_add = engine.router.version
+    e_k4 = _kernel_vs_plain(engine, held_out, "K = 4 after the hot add")
+    seen = {"exploit": 0, "explored": 0}
+    choose = hot.choose
+
+    def spy(s_hat, c_hat, lam, now=0.0):
+        probation = hot.membership.in_probation(idx)
+        out = choose(s_hat, c_hat, lam, now)
+        if probation:
+            ex = hot.last_explored
+            seen["exploit"] += int((out[~ex] == idx).sum())
+            seen["explored"] += int((out[ex] == idx).sum())
+        return out
+
+    hot.choose = spy
+    trace = _online_trace("poisson", HOTADD_REQUESTS, 2, data, te,
+                          min(m.cfg.vocab_size for m in engine.pool))
+    counts.start()
+    t0 = time.perf_counter()
+    sched = serve.build_scheduler(engine, score_batch=64, max_batch=8, max_wait_s=0.02,
+                                  queue_capacity=256, adapter=hot, device="cuda")
+    summary = sched.run_trace(trace)
+    torch.cuda.synchronize()
+    wall3 = time.perf_counter() - t0
+    got = counts.take()
+    del hot.choose
+    check(summary["completed"] == HOTADD_REQUESTS, f"hot-add trace completed "
+          f"{summary['completed']} of {HOTADD_REQUESTS}")
+    check(got["router_xattn"] > 0, "the K = 4 trace launched router_xattn")
+    check(seen["exploit"] == 0, f"the probationary member was the exploit argmax "
+          f"{seen['exploit']} times")
+    e_k4_after = _kernel_vs_plain(engine, held_out, "K = 4 after the hot-add trace")
+    log(f"[online] hot add {HOTADD_MEMBER}: {n_new / 1e9:.4f}B params ({4 * n_new / 2**30:.2f} "
+        f"GiB) built in {t_build:.2f}s; memory {base:.2f} -> {grown:.2f} GiB; router_xattn "
+        f"at K = 4: max |err| "
+        f"{e_k4:.3g} (v{v_add}), {e_k4_after:.3g} "
+        f"after the trace (v{engine.router.version}); launches at the add: "
+        f"{got_add['router_xattn']} / {got_add['pairwise_l2']}")
+    log(f"[online] K = 4 trace of {HOTADD_REQUESTS} in {wall3:.3f}s: {hot.report()}; "
+        f"the new member chosen {seen['explored']} times through exploration, 0 by the "
+        f"exploit argmax; per-member counts " + ", ".join(
+            f"{k}={v}" for k, v in summary["per_member_counts"].items())
+        + f"; launches router_xattn {got['router_xattn']}, pairwise_l2 {got['pairwise_l2']}")
+    hot.remove_member(idx)
+    gc.collect()
+    torch.cuda.empty_cache()
+    back = torch.cuda.memory_allocated() / 2**30
+    check(engine.router.n_members == 3 and len(engine.pool) == 3, "removed: K = 3")
+    check(abs(back - base) < 0.1, f"memory after the removal {back:.2f} GiB vs {base:.2f}")
+    log(f"[online] removed {HOTADD_MEMBER}: memory {grown:.2f} -> {back:.2f} GiB "
+        f"(before the add {base:.2f})")
+    result.update(launches=counts.total, memory_gib=(base, grown, back),
+                  max_abs_err_k4=max(e_k4, e_k4_after), data=data)
+    log(f"[online] launches on the online path: router_xattn "
+        f"{counts.total['router_xattn']}, pairwise_l2 {counts.total['pairwise_l2']}")
+    return result
+
+
+def phase_cascade(engine, data, rx, pl2) -> dict:
+    """The stop-vs-escalate ladder on the default pool with an attn-ens
+    router trained on the card: a near-duplicate trace through the cascade
+    with the semantic cache as rung 0, then the cascade with the online
+    adapter observing every leg."""
+    from repro_torch.cascade import cost_ladder
+    from repro_torch.launch import serve
+    from repro_torch.serving.queue import DONE
+    from repro_torch.serving.semcache import _KERNEL_MIN_CELLS
+
+    tr, _, te = data.split(seed=0)
+    train = data.emb[tr]
+    t0 = time.perf_counter()
+    cengine = serve.train_engine(engine.pool, quality_kind="attn-ens", device="cuda")
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    cengine.lam = CASCADE_LAM
+    truth = serve.quality_truth(cengine.pool, data)
+    vocab = min(m.cfg.vocab_size for m in cengine.pool)
+    ladder = cost_ladder(cengine.router)
+    mu = np.asarray(cengine.router.cost_scaler["mu"])
+    check(cengine.router.quality_kind == "attn-ens", "the cascade router is attn-ens")
+    check(bool(np.all(np.diff(mu[ladder]) >= 0)), f"ladder {ladder} ascends in mu {mu}")
+    s_mean, s_std, _ = cengine.score_emb_uncertainty(data.emb[te][:HELD_OUT_CHECK])
+    check(bool(np.all(np.isfinite(s_mean))) and float(s_std.max()) > 0,
+          "attn-ens scores finite with nonzero head spread")
+    log(f"[cascade] attn-ens router trained on the card in {t_train:.2f}s; ladder "
+        + " < ".join(f"{cengine.pool[i].name} ({mu[i]:.6g})" for i in ladder)
+        + f"; head spread on {HELD_OUT_CHECK} held-out queries: mean std "
+        f"{float(s_std.mean()):.4g}, max {float(s_std.max()):.4g}; lambda {CASCADE_LAM}")
+    counts = _Launches(rx, pl2)
+
+    trace = _online_trace("neardup", CASCADE_REQUESTS, 0, data, te, vocab,
+                          hot_set=32, dup_frac=0.7)
+    counts.start()
+    t0 = time.perf_counter()
+    coord = serve.make_cascade(cengine, truth, max_legs=3)
+    drift = serve.build_drift_proto(train, cengine.router.centroids, window=DRIFT_WINDOW,
+                                    device="cuda")
+    cache = serve.make_semcache(train, cap=256, drift=drift, device="cuda")
+    sched = serve.build_scheduler(cengine, score_batch=64, max_batch=8, max_wait_s=0.02,
+                                  queue_capacity=256, semcache=cache, cascade=coord,
+                                  device="cuda")
+    check(cache.policy is coord.policy, "rung 0 decides with the cascade's policy")
+    rung0 = {"calls": 0, "stops": 0}
+    decide_rung0 = coord.policy.decide_rung0
+
+    def spy(**kw):
+        d = decide_rung0(**kw)
+        rung0["calls"] += 1
+        rung0["stops"] += not d.escalate
+        return d
+
+    coord.policy.decide_rung0 = spy
+    summary = sched.run_trace(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts.take()
+    n_done = summary["completed"] + summary["rejected"] + summary["expired"]
+    check(n_done == CASCADE_REQUESTS, f"cascade trace accounts for {n_done}")
+    check(summary["escalations"] > 0 and summary["escalations"] == coord.stats["escalations"],
+          f"escalations {summary['escalations']} (coordinator {coord.stats['escalations']})")
+    check(sum(summary["finalized_by_leg"]) == summary["completed"],
+          f"finalized by leg {summary['finalized_by_leg']} vs {summary['completed']}")
+    for r in trace:
+        check(abs(r.cum_cost - sum(r.leg_costs)) <= 1e-12,
+              f"request {r.rid}: cumulative $ {r.cum_cost} vs legs {r.leg_costs}")
+        if r.status == DONE:
+            member = cengine.pool[r.member]
+            check(len(r.output) == r.max_new and 0 <= int(r.output.min())
+                  and int(r.output.max()) < member.cfg.vocab_size,
+                  f"request {r.rid}: {len(r.output)} tokens in {member.name}'s vocab")
+    check(rung0["stops"] > 0 and cache.stats["served"] == rung0["stops"],
+          f"the cache served {cache.stats['served']} requests, decide_rung0 stopped "
+          f"{rung0['stops']} of {rung0['calls']}")
+    check(got["pairwise_l2"] > 0, "the cascade path launched pairwise_l2")
+    for line in sched.telemetry.report(summary.get("duration_s")).splitlines():
+        log(f"[cascade] {line}")
+    log(f"[cascade] {coord.report()}")
+    rep = cache.report()
+    log(f"[cascade] rung 0: {rung0['calls']} decide_rung0 calls, {rung0['stops']} stops = "
+        f"{rep['served']} served, {rep['fallthroughs']} fallthroughs; {rep['lookups']} "
+        f"lookups, {rep['entries']} entries; drift {drift.windows_seen} windows, "
+        f"{drift.alarms} alarms")
+    escalations = summary["escalations"]
+    log(f"[cascade] trace of {CASCADE_REQUESTS} in {wall:.3f}s (set-up included); launches "
+        f"router_xattn {got['router_xattn']} (attn-ens scores on the plain predictor), "
+        f"pairwise_l2 {got['pairwise_l2']} (calibrate, drift fit and windows, lookups of "
+        f"{_KERNEL_MIN_CELLS} cells or more)")
+
+    trace = _online_trace("poisson", COMPOSED_REQUESTS, 3, data, te, vocab)
+    counts.start()
+    t0 = time.perf_counter()
+    adapter = serve.make_adapter(cengine, truth, train, window=DRIFT_WINDOW, seed=0)
+    coord2 = serve.make_cascade(cengine, truth, max_legs=3)
+    sched = serve.build_scheduler(cengine, score_batch=64, max_batch=8, max_wait_s=0.02,
+                                  queue_capacity=256, adapter=adapter, cascade=coord2,
+                                  device="cuda")
+    summary = sched.run_trace(trace)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    got2 = counts.take()
+    legs = sum(r.leg for r in trace)
+    check(summary["completed"] == COMPOSED_REQUESTS, "composed trace completed")
+    check(adapter.stats["outcomes"] == legs > summary["completed"],
+          f"the adapter observed {adapter.stats['outcomes']} outcomes for {legs} legs of "
+          f"{summary['completed']} requests")
+    log(f"[cascade] --online --cascade, {COMPOSED_REQUESTS} requests in {wall2:.3f}s: "
+        f"{coord2.report()}")
+    log(f"[cascade] {adapter.report()}; launches router_xattn {got2['router_xattn']}, "
+        f"pairwise_l2 {got2['pairwise_l2']}")
+    log(f"[cascade] launches on the cascade path: router_xattn "
+        f"{counts.total['router_xattn']}, pairwise_l2 {counts.total['pairwise_l2']}")
+    return {"launches": counts.total, "escalations": escalations,
+            "train_s": t_train, "wall_s": wall + wall2}
+
+
 def bench_defaults() -> tuple:
     """(queries, epochs): the defaults of REPRO_BENCH_QUERIES and
     REPRO_BENCH_EPOCHS in benchmarks/common.py, read from the file (the
@@ -2142,6 +2602,14 @@ def main() -> int:
     lookup = phase_lookup(trace["radius"], pl2)
     log(f"[lookup] phase wall {time.perf_counter() - t0:.2f}s")
 
+    t0 = time.perf_counter()
+    online = phase_online(engine, rx, pl2)
+    log(f"[online] phase wall {time.perf_counter() - t0:.2f}s")
+
+    t0 = time.perf_counter()
+    cascade = phase_cascade(engine, online.pop("data"), rx, pl2)
+    log(f"[cascade] phase wall {time.perf_counter() - t0:.2f}s")
+
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -2187,12 +2655,16 @@ def main() -> int:
         "launches_by_path": {"serve": serve_launches["router_xattn"],
                              "moe": moe_run["launches"]["router_xattn"],
                              "trace": trace["launches"]["router_xattn"],
+                             "online": online["launches"]["router_xattn"],
+                             "cascade": cascade["launches"]["router_xattn"],
                              "train": train["launches"], "table2": table2["launches"],
                              "attn_long": attn_long["launches"]["router_xattn"],
                              "recurrent": recurrent["launches"]["router_xattn"],
                              "multimodal": multimodal["launches"]["router_xattn"]},
         "max_abs_err_trained": {"train": train["max_abs_err"],
-                                "table2": table2["timing"]["max_abs_err"]},
+                                "table2": table2["timing"]["max_abs_err"],
+                                "online_after_swap": online["max_abs_err_after_swap"],
+                                "online_K_4": online["max_abs_err_k4"]},
         "max_abs_err": err["float32"], "max_abs_err_bf16": err["bfloat16"],
         "shape": {"B": N_REQUESTS, "K": len(POOL), "d": 20, "dq": 768},
         **timing, "library_ms": None, "at_B_256": timing_256,
@@ -2206,6 +2678,8 @@ def main() -> int:
                              "moe": moe_run["launches"]["pairwise_l2"],
                              "trace": trace["launches"]["pairwise_l2"],
                              "lookup": lookup["launches"],
+                             "online": online["launches"]["pairwise_l2"],
+                             "cascade": cascade["launches"]["pairwise_l2"],
                              "attn_long": attn_long["launches"]["pairwise_l2"],
                              "recurrent": recurrent["launches"]["pairwise_l2"],
                              "multimodal": multimodal["launches"]["pairwise_l2"]},

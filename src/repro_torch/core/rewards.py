@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 
 _TINY = torch.finfo(torch.float32).tiny
@@ -41,6 +42,19 @@ REWARDS: Dict[str, Callable] = {
     "R1": reward_linear,
     "R2": reward_exponential,
 }
+
+
+def reward_matrix(reward_name: str, s_hat, c_hat, lam: float) -> np.ndarray:
+    """The reference's ``REWARDS[name](s_hat, c_hat, lam)`` on numpy score
+    rows, rounded as it rounds them: its R1 is numpy arithmetic (float64
+    for the engine's float64 costs); its R2 hands the numpy ``-c/lam`` to
+    ``jnp.exp``, which narrows it to float32, and the product is float32.
+    """
+    s, c = np.asarray(s_hat), np.asarray(c_hat)
+    if reward_name == "R1":
+        return s - c / lam
+    return REWARDS[reward_name](torch.from_numpy(s.astype(np.float32)),
+                                torch.as_tensor(c), lam).numpy()
 
 
 def route(reward_name: str, s_hat, c_hat, lam: float) -> torch.Tensor:

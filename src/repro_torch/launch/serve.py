@@ -10,6 +10,10 @@
         --pool qwen3-0.6b,musicgen-large,llama-3.2-vision-90b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --trace neardup --semcache --requests 200
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --trace drift --online --requests 200 --budget 0.02 --feedback-delay 0.01
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --trace neardup --cascade --semcache --max-legs 3 --requests 200
 
 builds the pool members at their published widths and depths on the CUDA
 card (``--smoke`` builds the reduced configs instead, ``--device cpu``
@@ -33,6 +37,22 @@ on the training split against the router's k-means centroids. A trained
 router carries those centroids; a checkpoint without them gets them from
 k-means (C = 20) of the training split.
 
+In trace mode, as the reference's single-scheduler run: ``--online`` puts
+an :class:`~repro_torch.online.OnlineAdapter` on the scheduler (replay,
+exploration at ``--epsilon``, a drift detector of window 48 fitted on the
+training split, an update every ``--online-update-every`` outcomes,
+``--refresh-established``; ``--feedback-delay`` stages the feedback and
+delivers it that many virtual seconds late). ``--cascade`` trains an
+``attn-ens`` quality head and runs the stop-vs-escalate ladder
+(``--max-legs``, ``--cascade-beta``, ``--cascade-margin``,
+``--cascade-min-headroom``); with ``--semcache`` the cache's rung 0 takes
+the cascade's policy. Both take their observed quality from the
+synthetic RouterBench truth, keyed by text over the pool's quality
+columns. ``--budget`` (with ``--budget-window`` and ``--lam``) adds the
+budget governor, whose headroom anneals exploration and gates escalation.
+With ``--online`` the adapter's drift detector drives the cache's
+invalidation, as in the reference; otherwise the cache owns one.
+
 Every random path derives from ``--seed``: pool init from torch
 generators on the serving device, the predictors' init likewise, the
 model embeddings, the corpus, the k-means seeds, the batch order, the
@@ -42,11 +62,12 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.cascade import CascadeConfig, CascadeCoordinator, CascadePolicy, cost_ladder
 from repro_torch.checkpoint import load_router, save_router
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.configs import get_config, get_smoke_config
@@ -58,7 +79,11 @@ from repro_torch.core.router import PredictiveRouter
 from repro_torch.data.featurizer import EMB_DIM
 from repro_torch.data.routerbench import generate
 from repro_torch.models import lm as lm_mod
-from repro_torch.online.drift import DriftDetector
+from repro_torch.online import (
+    DelayedFeedback, DriftDetector, ExplorationConfig, MembershipTracker, OnlineAdapter,
+    OnlineUpdateConfig, OutcomeStage,
+)
+from repro_torch.serving.budget import BudgetGovernor
 from repro_torch.serving.engine import PoolMember, RoutedEngine, arch_cost_rate
 from repro_torch.serving.scheduler import (
     MicroBatchScheduler, SchedulerConfig, default_service_model,
@@ -238,13 +263,79 @@ def make_semcache(train_emb: np.ndarray, *, radius: Optional[float] = None,
     return SemanticCache(radius, cap=cap, drift=drift, device=device)
 
 
+def quality_truth(pool: Sequence[PoolMember], data) -> Callable:
+    """``truth(request) -> float``: the synthetic RouterBench quality of the
+    request's text for the member that served it, over ``pool``'s quality
+    columns (:func:`pool_quality_columns`). It stands in for the
+    deployment's feedback: the adapter's ratings, the cascade's observed
+    leg quality."""
+    quality = data.quality[:, pool_quality_columns(pool, data)]
+    qual_of_text = {data.texts[i]: quality[i] for i in range(len(data.texts))}
+
+    def truth(req) -> float:
+        return float(qual_of_text[req.text][req.member])
+
+    return truth
+
+
+def make_cascade(engine: RoutedEngine, truth: Optional[Callable], *,
+                 governor: Optional[BudgetGovernor] = None, max_legs: int = 3,
+                 beta: float = 1.0, margin: float = 0.0,
+                 min_headroom: float = 0.0) -> CascadeCoordinator:
+    """A cascade coordinator over the router's cost ladder, with ``truth``
+    as each leg's observed quality (None: the router's estimate)."""
+    policy = CascadePolicy(
+        cost_ladder(engine.router),
+        CascadeConfig(max_legs=max_legs, beta=beta, margin=margin,
+                      min_headroom=min_headroom),
+        reward=engine.router.reward)
+    return CascadeCoordinator(policy, observed_quality=truth, governor=governor)
+
+
+def make_feedback(truth: Callable, delay_s: float = 0.0, seed: int = 0):
+    """(quality_feedback, feedback_source, stage) for one adapter: the
+    truth at completion, or with ``delay_s`` > 0 staged and delivered
+    ``delay_s`` (plus up to half that of seeded jitter) later, unresolved
+    outcomes dropped after 20 delays."""
+    if delay_s > 0:
+        fb = DelayedFeedback(truth, delay_s, jitter_s=delay_s * 0.5, seed=seed)
+        return fb, fb, OutcomeStage(timeout_s=20.0 * delay_s)
+    return truth, None, None
+
+
+def make_adapter(engine: RoutedEngine, truth: Callable, train_emb: np.ndarray, *,
+                 governor: Optional[BudgetGovernor] = None, update_every: int = 32,
+                 epsilon: float = 0.05, feedback_delay: float = 0.0,
+                 refresh_established: bool = False, window: int = 48,
+                 seed: int = 0) -> OnlineAdapter:
+    """The reference's solo online adapter over ``engine``: a drift
+    detector of ``window`` fitted on ``train_emb`` against the router's
+    centroids (on the engine's device), exploration at ``epsilon`` seeded
+    with ``seed``, an update every ``update_every`` outcomes, feedback from
+    :func:`make_feedback`."""
+    quality_feedback, feedback_source, stage = make_feedback(truth, feedback_delay, seed)
+    drift = build_drift_proto(train_emb, engine.router.centroids, window=window,
+                              device=engine.device)
+    membership = (MembershipTracker(engine, refresh_established=True)
+                  if refresh_established else None)
+    return OnlineAdapter(
+        engine, quality_feedback, governor=governor,
+        config=OnlineUpdateConfig(update_every=update_every),
+        exploration=ExplorationConfig(epsilon=epsilon, seed=seed),
+        drift=drift, feedback_source=feedback_source, stage=stage,
+        membership=membership, seed=seed)
+
+
 def build_scheduler(engine: RoutedEngine, *, score_batch: int = 64,
                     max_batch: int = 8, max_wait_s: float = 0.05,
                     queue_capacity: int = 512,
                     semcache: Optional[SemanticCache] = None,
+                    governor: Optional[BudgetGovernor] = None,
+                    adapter: Optional[OnlineAdapter] = None,
+                    cascade: Optional[CascadeCoordinator] = None,
                     device: Optional[DeviceLike] = None) -> MicroBatchScheduler:
     """The streaming scheduler over ``engine`` on the deterministic
-    service-time model. The engine, the cache and its drift detector must
+    service-time model. The engine, the cache and the drift detectors must
     all run on ``device`` (the CUDA card unless the caller names another)."""
     device = resolve_device(device)
     parts = [("engine", engine.device)]
@@ -252,26 +343,45 @@ def build_scheduler(engine: RoutedEngine, *, score_batch: int = 64,
         parts.append(("semantic cache", semcache.device))
         if semcache.drift is not None:
             parts.append(("drift detector", semcache.drift.device))
+    if adapter is not None and adapter.drift is not None:
+        parts.append(("adapter's drift detector", adapter.drift.device))
     for name, d in parts:
         if (d.type, d.index or 0) != (device.type, device.index or 0):
             raise ValueError(f"the {name} runs on {d}, the scheduler on {device}")
     return MicroBatchScheduler(
         engine, SchedulerConfig(score_batch=score_batch, max_batch=max_batch,
                                 max_wait_s=max_wait_s, queue_capacity=queue_capacity),
-        semcache=semcache, service_time=default_service_model())
+        governor=governor, service_time=default_service_model(),
+        adapter=adapter, cascade=cascade, semcache=semcache)
 
 
 def run_trace_mode(engine: RoutedEngine, args) -> dict:
     """Replay ``args.trace`` over the held-out split through the scheduler
-    (and the semantic cache with ``args.semcache``); print the report."""
+    (with the semantic cache, the online adapter, the cascade and the
+    budget governor as ``args`` asks); print the report."""
     data, _, _ = synthetic_pool_traffic(engine.pool, seed=args.seed)
     tr, _, te = data.split(seed=args.seed)
     fit_router_centroids(engine.router, data.emb[tr], seed=args.seed,
                          device=engine.device)
+    governor = (BudgetGovernor(args.budget, args.budget_window, lam0=args.lam)
+                if args.budget > 0 else None)
+    truth = quality_truth(engine.pool, data) if (args.online or args.cascade) else None
+    adapter = None
+    if args.online:
+        adapter = make_adapter(
+            engine, truth, data.emb[tr], governor=governor,
+            update_every=args.online_update_every, epsilon=args.epsilon,
+            feedback_delay=args.feedback_delay,
+            refresh_established=args.refresh_established, seed=args.seed)
+    cascade = None
+    if args.cascade:
+        cascade = make_cascade(engine, truth, governor=governor, max_legs=args.max_legs,
+                               beta=args.cascade_beta, margin=args.cascade_margin,
+                               min_headroom=args.cascade_min_headroom)
     cache = None
     if args.semcache:
-        drift = build_drift_proto(data.emb[tr], engine.router.centroids,
-                                  seed=args.seed, device=engine.device)
+        drift = None if adapter is not None else build_drift_proto(
+            data.emb[tr], engine.router.centroids, seed=args.seed, device=engine.device)
         cache = make_semcache(data.emb[tr], radius=args.cache_radius,
                               cap=args.cache_cap, drift=drift, device=engine.device)
         print(f"semcache radius {cache.radius:.4f}"
@@ -285,10 +395,13 @@ def run_trace_mode(engine: RoutedEngine, args) -> dict:
         benchmarks=[data.benchmark[i] for i in te])
     sched = build_scheduler(engine, score_batch=args.score_batch,
                             max_batch=args.max_batch, semcache=cache,
+                            governor=governor, adapter=adapter, cascade=cascade,
                             device=engine.device)
     summary = sched.run_trace(trace)
     print(f"trace={args.trace} requests={args.requests} seed={args.seed}")
     print(sched.telemetry.report(summary.get("duration_s")))
+    if cascade is not None:
+        print(cascade.report())
     if cache is not None:
         rep = cache.report()
         print(f"semcache: {rep['served']} served / {rep['lookups']} lookups "
@@ -297,8 +410,19 @@ def run_trace_mode(engine: RoutedEngine, args) -> dict:
               f"{rep['stale_hits']} stale  {rep['evicted']} evicted  "
               f"{rep['invalidations']} invalidated  "
               f"{rep['entries']} entries")
-        print(f"drift: {cache.drift.windows_seen} windows, "
-              f"{cache.drift.alarms} alarms")
+        if cache.drift is not None:
+            print(f"drift: {cache.drift.windows_seen} windows, "
+                  f"{cache.drift.alarms} alarms")
+    if adapter is not None:
+        print(adapter.report())
+        print(f"drift: {adapter.drift.windows_seen} windows, "
+              f"{adapter.drift.alarms} alarms")
+    if governor is not None:
+        g = governor.summary(sched.clock.now)
+        print(f"budget ${g['budget_per_window']:.4f}/{args.budget_window}s "
+              f"window  spend ${g['total_spend']:.6f}  "
+              f"final lambda {g['lam']:.3g} (nominal {g['lam0']:.3g})  "
+              f"tightened x{int(g['tightened'])} relaxed x{int(g['relaxed'])}")
     return summary
 
 
@@ -333,15 +457,48 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "from the training split)")
     ap.add_argument("--cache-cap", type=int, default=256,
                     help="semcache: max entries (LRU eviction past it)")
+    ap.add_argument("--lam", type=float, default=1.0,
+                    help="willingness to pay (the governor's nominal lambda)")
+    ap.add_argument("--budget", type=float, default=0.0,
+                    help="$ budget per rolling window (0 disables the governor)")
+    ap.add_argument("--budget-window", type=float, default=0.5,
+                    help="governor window, virtual seconds")
+    ap.add_argument("--online", action="store_true",
+                    help="online adaptation: replay-buffered outcome feedback, "
+                         "drift detection, exploration and incremental router "
+                         "updates (with --trace)")
+    ap.add_argument("--refresh-established", action="store_true",
+                    help="online: EMA outcome-driven embedding refresh for "
+                         "graduated members")
+    ap.add_argument("--online-update-every", type=int, default=32,
+                    help="online: outcomes between scheduled updates")
+    ap.add_argument("--epsilon", type=float, default=0.05,
+                    help="online: exploration rate at full budget headroom")
+    ap.add_argument("--feedback-delay", type=float, default=0.0,
+                    help="online: virtual seconds until quality feedback "
+                         "arrives (staged path; 0 = at completion)")
+    ap.add_argument("--cascade", action="store_true",
+                    help="cascade routing: train the attn-ens quality head and "
+                         "escalate up the cost ladder (with --trace)")
+    ap.add_argument("--max-legs", type=int, default=3,
+                    help="cascade: max legs per request")
+    ap.add_argument("--cascade-beta", type=float, default=1.0,
+                    help="cascade: optimism width on untried rungs")
+    ap.add_argument("--cascade-margin", type=float, default=0.0,
+                    help="cascade: required expected marginal reward to escalate")
+    ap.add_argument("--cascade-min-headroom", type=float, default=0.0,
+                    help="cascade: budget headroom below which no leg escalates")
     args = ap.parse_args(argv)
-    if args.semcache and args.trace is None:
-        ap.error("--semcache needs --trace")
+    for flag in ("semcache", "online", "cascade"):
+        if getattr(args, flag) and args.trace is None:
+            ap.error(f"--{flag} needs --trace")
 
     names = args.pool.split(",")
     t0 = time.perf_counter()
     engine = build_engine(names, router_path=args.router, seed=args.seed,
                           device=args.device, smoke=args.smoke, epochs=args.epochs,
-                          quality_kind=args.quality_kind)
+                          quality_kind="attn-ens" if args.cascade else args.quality_kind)
+    engine.lam = args.lam
     t_build = time.perf_counter() - t0
     print(f"device: {engine.device}  build: {t_build:.3f}s")
     if args.save_router is not None:

@@ -6,13 +6,16 @@ The port of ``repro.models.ssm``. The recurrence
 
 runs over time chunks of ``SSM_CHUNK``: each chunk's decays and inputs,
 (B, Q, d_inner, d_state), are formed at once, then a loop over the
-chunk's steps runs the recurrence in place (torch has no
-``associative_scan``; the reference's log-space scan is the same
-recurrence, reassociated). No more than one chunk of (B, Q, d_inner,
-d_state) is held at a time, whatever the prompt length: the reference
-takes a prompt that is not a multiple of the chunk as one chunk, which at
-jamba's width is 1 MiB per token and row; the port's last chunk is just
-shorter, with the same results within float32 rounding.
+chunk's steps runs the recurrence (torch has no ``associative_scan``;
+the reference's log-space scan is the same recurrence, reassociated). It
+runs in place unless autograd is recording, which needs every step's
+state kept: then the states are new tensors, stacked, with the same
+arithmetic, so a training pass differentiates what serving computes. No
+more than one chunk of (B, Q, d_inner, d_state) is held at a time,
+whatever the prompt length: the reference takes a prompt that is not a
+multiple of the chunk as one chunk, which at jamba's width is 1 MiB per
+token and row; the port's last chunk is just shorter, with the same
+results within float32 rounding.
 
 Masked compute (``mask`` (B, S) bool, True at real tokens) makes pads
 identity updates: the conv input is zeroed at pads and ``dt`` -> 0 there,
@@ -96,10 +99,19 @@ def apply_mamba_prefill(cfg: ArchConfig, p: Dict, x: torch.Tensor,
         hi = lo + SSM_CHUNK
         dtc = dt[:, lo:hi]
         decay = (dtc[..., None] * neg_a).exp_()                 # (B,q,di,ds)
-        # The inputs dt·B·x; the loop turns them into the states in place.
+        # The inputs dt·B·x; the loop turns them into the states, in place
+        # when serving. In place would overwrite the states autograd saved,
+        # so while autograd records, each step's state is a new tensor.
         hs = (dtc * xc[:, lo:hi].float())[..., None] * b_mat[:, lo:hi, None, :]
-        for i in range(hs.shape[1]):
-            hs[:, i].addcmul_(decay[:, i], hs[:, i - 1] if i else h)
+        if hs.requires_grad or decay.requires_grad or h.requires_grad:
+            states = []
+            for i in range(hs.shape[1]):
+                states.append(torch.addcmul(hs[:, i], decay[:, i],
+                                            states[-1] if i else h))
+            hs = torch.stack(states, dim=1)
+        else:
+            for i in range(hs.shape[1]):
+                hs[:, i].addcmul_(decay[:, i], hs[:, i - 1] if i else h)
         ys.append((hs @ c_mat[:, lo:hi, :, None])[..., 0])     # (B,q,di)
         h = hs[:, -1].clone()
     out = _out(p, torch.cat(ys, dim=1), xc, z, x.dtype)

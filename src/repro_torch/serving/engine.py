@@ -170,6 +170,17 @@ class RoutedEngine:
         """(s_hat, c_hat), both (B, K) numpy, from precomputed embeddings."""
         return self._scores(q_emb)
 
+    def score_emb_uncertainty(self, q_emb: np.ndarray):
+        """(s_mean, s_std, c_hat), each (B, K) numpy: the cascade's scoring.
+
+        Ensemble quality kinds report the heads' spread as epistemic std;
+        other kinds report zero std. This path runs the plain predictors
+        (``router.predict_with_uncertainty``), as the reference's does: the
+        ``router_xattn`` kernel computes one output head, and the heads'
+        spread is exactly what fusing them would take away.
+        """
+        return self.router.predict_with_uncertainty(q_emb)
+
     def score_texts(self, texts: Sequence[str]):
         """(s_hat, c_hat), both (B, K) numpy — one fused pass over the batch."""
         return self._scores(embed_texts(texts))

@@ -23,9 +23,11 @@ The port of ``repro.serving.scheduler``, a close copy. Its engine is the
 port's :class:`~repro_torch.serving.engine.RoutedEngine`; the semantic
 cache, when given, is :class:`~repro_torch.serving.semcache.SemanticCache`.
 The ``adapter``/``cascade``/``tracer``/``slo``/``flusher``/``dispatcher``
-hooks are the reference's duck-typed interfaces and default to ``None``:
-the layers behind them (online, cascade, obs, the fleet) are later slices
-of the port, which plug in here without another copy of this module.
+hooks are the reference's duck-typed interfaces and default to ``None``.
+``adapter`` takes the port's :class:`~repro_torch.online.OnlineAdapter`
+and ``cascade`` its :class:`~repro_torch.cascade.CascadeCoordinator`; the
+layers behind the others (obs, the fleet) are later slices of the port,
+which plug in here without another copy of this module.
 """
 from __future__ import annotations
 
@@ -145,11 +147,11 @@ class MicroBatchScheduler:
         # a flat series costs one event, not one per tick.
         self._ctr_depth: Optional[int] = None
         self._ctr_lam: Optional[float] = None
-        # Online adaptation (the online layer's OnlineAdapter): overrides the
+        # Online adaptation (repro_torch.online.OnlineAdapter): overrides the
         # scoring-step argmax with the exploration policy and consumes
         # served outcomes after every dispatch round.
         self.adapter = adapter
-        # Cascade escalation (the cascade layer's CascadeCoordinator): turns
+        # Cascade escalation (repro_torch.cascade.CascadeCoordinator): turns
         # completed legs into stop-vs-escalate decisions; escalated
         # requests are re-admitted at the queue head instead of finalized.
         self.cascade = cascade

@@ -7,7 +7,7 @@ zero marginal cost. Crucially the decision to serve it is NOT a bare
 threshold — the cache is wired as the cheapest rung of the cascade
 ladder, so stop-vs-escalate reasons about cache confidence with the same
 expected-marginal-reward math as every other leg
-(the cascade layer's ``CascadePolicy.decide_rung0``; not ported yet):
+(:meth:`repro_torch.cascade.CascadePolicy.decide_rung0`):
 
   * **stop value** — the reward of keeping the cached answer at $0:
     ``R(q_entry - gamma * sigma(d), 0)`` where ``sigma(d)`` is a
@@ -128,7 +128,7 @@ def calibrate_radius(emb: np.ndarray, quantile: float = 0.05,
 class SemanticCache:
     """Embedding-keyed answer cache serving as cascade rung 0.
 
-    ``policy`` (the cascade layer's ``CascadePolicy``) makes a hit
+    ``policy`` (a :class:`repro_torch.cascade.CascadePolicy`) makes a hit
     a real stop-vs-escalate decision; without one the cache degrades to a
     radius threshold (the quality floor was enforced at admission).
     ``drift`` optionally attaches a detector the cache owns — its alarms

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain versions, training, the
 mixture-of-experts member, sliding-window and long-prompt attention, the
-recurrent members (xlstm-1.3b, the jamba hybrid), and the last three
+recurrent members (xlstm-1.3b, the jamba hybrid), the last three
 configs (musicgen-large, llama4-maverick, cross attention with
-llama-3.2-vision and its stub media), on the card.
+llama-3.2-vision and its stub media), the Mamba scan's gradient, and the
+online adaptation and cascade layers, on the card.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (marker ``cuda``) and
 skips without one: a CUDA kernel has no CPU mode. The file imports no JAX,
@@ -665,3 +666,88 @@ def test_build_engine_serves_the_multimodal_pools_on_the_card(cuda, names, monke
         assert np.all(costs > 0)
     assert not any(moe.DECODE_DROP_LOG)
     assert ("llama4-maverick-400b-a17b" in names) == bool(moe.DECODE_DROP_LOG)
+
+
+def test_mamba_prefill_gradient_on_the_card_equals_the_cpu(cuda):
+    """The out-of-place scan while autograd records: d loss / d x and / d
+    A_log over two chunks with left pads, card against CPU (rel 1e-4)."""
+    cfg = get_smoke_config("jamba-1.5-large-398b")
+    p = ssm.init_mamba(torch.Generator().manual_seed(0), cfg)
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn((2, 256, cfg.d_model), generator=gen) * 0.5
+    w = torch.randn((2, 256, cfg.d_model), generator=gen)
+    mask = torch.ones((2, 256), dtype=torch.bool)
+    mask[0, :130] = False
+
+    def grads(device):
+        pd = tree_map(lambda a: a.to(device).requires_grad_(True), p)
+        xd = x.to(device).requires_grad_(True)
+        out, _ = ssm.apply_mamba_prefill(cfg, pd, xd, mask=mask.to(device))
+        return [g.cpu() for g in torch.autograd.grad((out * w.to(device)).sum(),
+                                                     [xd, pd["A_log"], pd["dt_bias"]])]
+
+    for got, want in zip(grads(cuda), grads("cpu")):
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# Online adaptation and cascade routing on the card
+# ---------------------------------------------------------------------------
+
+def test_online_updater_steps_on_the_card_equal_the_cpus(cuda):
+    """8 masked Adam steps on one replay from one router, on the card and on
+    the CPU: losses within 1e-5, params within rtol 1e-3 / atol 1e-5 (Adam's
+    normalized step turns a gradient's last-bit difference near 0 into a
+    step of up to lr); the live router's tensors unchanged."""
+    from repro_torch.launch.serve import init_router
+    from repro_torch.online import IncrementalUpdater, ReplayBuffer
+
+    base = init_router(3, seed=4, device="cpu")
+
+    def run(device):
+        router = base.with_updates(
+            quality_params=tree_map(lambda a: a.to(device), base.quality_params),
+            cost_params=tree_map(lambda a: a.to(device), base.cost_params))
+        router.cost_scaler = {"mu": np.asarray([0.1, 1.0, 5.0]), "sd": np.ones(3)}
+        live = {k: v.clone() for k, v in router.quality_params.items()}
+        rng = np.random.default_rng(0)
+        replay = ReplayBuffer(capacity=64, seed=0)
+        for i in range(48):
+            q = rng.standard_normal(768)
+            replay.add(q / np.linalg.norm(q), i % 3, float(rng.uniform()), 0.5 * (i % 3))
+        upd = IncrementalUpdater(router)
+        res = upd.run_steps(replay, router.model_emb, 8)
+        assert all(torch.equal(router.quality_params[k], v) for k, v in live.items())
+        return res, tree_map(lambda a: a.cpu(), upd.q_params)
+
+    (res_g, got), (res_c, want) = run(cuda), run("cpu")
+    assert res_g["steps"] == res_c["steps"] == 8
+    assert abs(res_g["quality_loss"] - res_c["quality_loss"]) <= 1e-5
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("flags", [["--trace", "drift", "--online", "--feedback-delay", "0.001"],
+                                   ["--trace", "neardup", "--cascade", "--semcache",
+                                    "--lam", "0.0005"],
+                                   ["--trace", "poisson", "--online", "--cascade"]],
+                         ids=["online", "cascade", "online-cascade"])
+def test_serve_online_and_cascade_on_the_card(cuda, flags, capsys):
+    """The serve entry point's trace mode on the smoke default pool, on the
+    card: the adapter updates the router; the cascade finalizes every
+    request once, each cache stop or a first leg (whether a smoke router
+    escalates depends on its seeded training; ``chip_smoke.py``'s
+    ``[cascade]`` checks escalations at published size)."""
+    from repro_torch.launch.serve import main
+
+    main(["--smoke", "--device", "cuda", "--epochs", "3", "--requests", "48",
+          "--max-new", "2", *flags])
+    lines = capsys.readouterr().out.splitlines()
+    if "--online" in flags:
+        line = next(x for x in lines if x.startswith("online: "))
+        assert int(line.split("updates ")[1].split()[0]) > 0, line
+    if "--cascade" in flags:
+        line = next(x for x in lines if x.startswith("cascade: legs "))
+        field = lambda name: int(line.split(name + " ")[1].split()[0])  # noqa: E731
+        assert field("finalized") == 48, line
+        assert field("legs") == 48 - field("cache-stops") + field("escalations"), line

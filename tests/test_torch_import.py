@@ -40,8 +40,17 @@ for name in names:
 leaked = sorted(k for k in sys.modules if k == "repro" or k.startswith("repro."))
 leaked += sorted(k for k, m in sys.modules.items()
                  if (k == "jax" or k.startswith("jax.")) and m is not None)
-print(json.dumps({"n_modules": len(names), "leaked": leaked}))
+print(json.dumps({"modules": names, "leaked": leaked}))
 """
+
+# Modules the walk must reach (the online and cascade layers among them).
+REQUIRED = {
+    "repro_torch.online.drift", "repro_torch.online.replay", "repro_torch.online.staging",
+    "repro_torch.online.exploration", "repro_torch.online.membership",
+    "repro_torch.online.updater", "repro_torch.online.loop", "repro_torch.cascade",
+    "repro_torch.cascade.policy", "repro_torch.cascade.coordinator",
+    "repro_torch.launch.serve", "repro_torch.serving.scheduler",
+}
 
 
 def test_port_imports_no_jax_and_no_reference_module():
@@ -50,7 +59,8 @@ def test_port_imports_no_jax_and_no_reference_module():
                           text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout)
-    assert report["n_modules"] >= 20
+    assert len(report["modules"]) >= 20
+    assert REQUIRED <= set(report["modules"])
     assert report["leaked"] == []
 
 
