@@ -68,7 +68,26 @@ Phases (any failure raises and exits non-zero before the last line):
      requests, each request's $ the sum of its legs, rung-0 stops equal to
      the cache's served count); then the adapter and the cascade together
      on 48 requests (the adapter observes every leg).
- 13. attn_long: with the default pool freed, smoke qwen1.5-4b (nonzero QKV
+ 13. obs: on the same pool, the 96-request ``neardup`` trace at lambda 1
+     with the semantic cache and a budget governor, twice under the whole
+     obs stack (a recorder sampling 0.25 with a head of 8 and a cap of 256
+     buffered events, the metrics registry with scheduler, governor, SLO
+     and stream metrics, p95 and miss-rate SLOs, a flusher every 0.05
+     virtual s, the kernel-dispatch profiler) and once without it: the
+     trace and span tree validate, the two runs' trace, segment files and
+     deterministic metrics are byte-identical, the profiler's calls equal
+     each kernel's launches, and each kernel's profiled p50 and p99 print
+     beside its ``[kernel]`` and ``[pairwise_l2]`` times.
+ 14. fleet: three in-process workers on the same pool through
+     ``serve.build_plane`` from the serve CLI's flags (``--online``, a
+     96-request ``drift`` trace, sync every 0.05, worker 1 crashed at 0.08
+     and rejoined at 0.2, one shared ledger of $0.01 per 0.5 s), twice:
+     the workers' device memory within 0.5 GiB (one pool, shared), every
+     worker up on one router version, no stale publish, requests
+     reassigned, ``router_xattn`` on every worker within 1e-5 of the plain
+     predictor, the rpc spans validate, and the two runs' rollups and
+     traces equal; the wall by part, syncs, merges, updates and lambda.
+ 15. attn_long: with the default pool freed, smoke qwen1.5-4b (nonzero QKV
      biases) and gemma3-27b (window 8) on the card against the CPU at 17 and
      2048 tokens (1e-4); a pool of qwen3-0.6b, qwen1.5-4b and gemma3-27b at
      full width, fp32, gemma3 cut to 8 layers (7 local with window 1024, 1
@@ -82,7 +101,7 @@ Phases (any failure raises and exits non-zero before the last line):
      cache against a full cache across the wrap (1e-4); prefill and decode
      step of qwen1.5-4b and gemma3 at S 1536, 2048 and 4096 with the
      device's busy time and the decode step's bytes bound.
- 14. recurrent: with the attention pool freed, smoke xlstm-1.3b and the
+ 16. recurrent: with the attention pool freed, smoke xlstm-1.3b and the
      jamba hybrid on the card against the CPU at 17 and 600 tokens (xlstm
      pads 600 to 768; 1e-4); a pool of qwen3-0.6b, xlstm-1.3b at published
      size (48 layers, sLSTM:mLSTM 1:7) and jamba-1.5-large at published
@@ -102,7 +121,7 @@ Phases (any failure raises and exits non-zero before the last line):
      bound (weights, the K/V cache, the recurrent state read and written)
      and xlstm's sLSTM and mLSTM shares of prefill (one layer of each timed
      alone, times its count).
- 15. multimodal: with the recurrent pool freed, smoke musicgen-large,
+ 17. multimodal: with the recurrent pool freed, smoke musicgen-large,
      llama4-maverick and llama-3.2-vision (with seeded stub media) on the
      card against the CPU at 17 and 600 tokens (1e-4); then two pools in
      turn, each built by ``build_cut_pool`` (``build_pool``, then the cut
@@ -127,15 +146,15 @@ Phases (any failure raises and exits non-zero before the last line):
      media K/V counted; for llama4 with the experts the tokens chose and
      with all 128, as the decode rule reads them) and llama4's prefill
      capacity drops; device memory after each build and each timing.
- 16. table2: the paper's Table 2 on pool1 (K = 5) with benchmarks/common.py's
+ 18. table2: the paper's Table 2 on pool1 (K = 5) with benchmarks/common.py's
      defaults (4000 queries, 300 epochs): the attention router and the MLP
      trained on the card, KNN (k = 20), SVM, LLM-Blender and the oracle, each
      with AIQ and perf_max over the 25-point lambda grid; the same attention
      quality predictor trained on the CPU from the same initial params must
      agree (losses rtol 1e-3, AIQ 5e-3); ``router_xattn`` on the trained
      params over the 1000 held-out queries (1e-5), timed.
-Each path (serve, moe, trace, lookup, online, cascade, attn_long,
-recurrent, multimodal) runs with every kernel's launch count set to 0 just
+Each path (serve, moe, trace, lookup, online, cascade, obs, fleet,
+attn_long, recurrent, multimodal) runs with every kernel's launch count set to 0 just
 before it and read just after; a kernel of the path that was not launched
 fails the run (the cascade's ``attn-ens`` router scores on the plain
 predictor, as the reference's does, so only ``pairwise_l2`` runs there).
@@ -196,6 +215,25 @@ HELD_OUT_CHECK = 64
 CASCADE_REQUESTS = 96
 COMPOSED_REQUESTS = 48
 CASCADE_LAM = 5e-4
+# [obs] on the default pool: the neardup trace with the semantic cache at
+# lambda 1 under the whole obs stack (sampled recorder with a cap, registry,
+# SLOs, a flusher every 0.05 virtual s, the kernel profiler), run twice, and
+# once without the stack for the wall it costs.
+OBS_REQUESTS = 96
+OBS_SAMPLE, OBS_HEAD, OBS_CAP = 0.25, 8, 256
+OBS_SCRAPE_EVERY = 0.05
+OBS_BUDGET = (0.01, 0.5)          # $ per window, window in virtual s
+OBS_SLO = {"p95_target_s": 0.05, "miss_rate_budget": 0.05}
+# [fleet]: three in-process workers sharing the default pool, the serve CLI's
+# own flags: online, a drift trace, a crash of worker 1 and its rejoin, one
+# shared budget ledger.
+FLEET_WORKERS = 3
+FLEET_REQUESTS = 96
+FLEET_ARGV = ["--trace", "drift", "--online", "--workers", str(FLEET_WORKERS),
+              "--requests", str(FLEET_REQUESTS), "--sync-every", "0.05",
+              "--crash-at", "0.08", "--rejoin-at", "0.2", "--crash-worker", "1",
+              "--budget", "0.01", "--budget-window", "0.5"]
+FLEET_SHARED_GIB = 0.5
 # [attn_long]: a pool of the attention members, gemma3-27b at full width cut
 # to one repeat of its 6-layer pattern (5 local, 1 global) plus its 2-local
 # remainder; the default pool is freed first.
@@ -2380,6 +2418,290 @@ def phase_cascade(engine, data, rx, pl2) -> dict:
             "train_s": t_train, "wall_s": wall + wall2}
 
 
+def _segment_bytes(out_dir) -> dict:
+    return {name: open(os.path.join(out_dir, name), "rb").read()
+            for name in sorted(os.listdir(out_dir))}
+
+
+def _obs_run(engine, data, counts, out_dir, stack: bool) -> dict:
+    """One neardup trace through the scheduler with the semantic cache, with
+    the whole obs stack when ``stack``; the kernel profiler is installed
+    just before the run's first dispatch (the cache's calibration) and
+    removed in the end, whatever happens."""
+    import shutil
+
+    from repro_torch import obs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serving.budget import BudgetGovernor
+
+    tr, _, te = data.split(seed=0)
+    train = data.emb[tr]
+    vocab = min(m.cfg.vocab_size for m in engine.pool)
+    trace = _online_trace("neardup", OBS_REQUESTS, 0, data, te, vocab,
+                          hot_set=32, dup_frac=0.7)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    recorder = registry = slo = flusher = profiler = None
+    governor = BudgetGovernor(*OBS_BUDGET, lam0=1.0)
+    if stack:
+        recorder = obs.TraceRecorder(
+            label="chip-obs-neardup",
+            sampler=obs.TraceSampler(OBS_SAMPLE, seed=0, head=OBS_HEAD),
+            max_buffered_per_worker=OBS_CAP)
+        registry = obs.MetricsRegistry()
+        slo = obs.build_slo_tracker(tracer=recorder, **OBS_SLO)
+        flusher = obs.ObsFlusher(out_dir, recorder=recorder, registry=registry,
+                                 scrape_every_s=OBS_SCRAPE_EVERY, label=recorder.label)
+        profiler = obs.KernelProfiler(tracer=recorder)
+    counts.start()
+    t0 = time.perf_counter()
+    ops.set_kernel_profiler(profiler)
+    try:
+        drift = serve.build_drift_proto(train, engine.router.centroids, window=DRIFT_WINDOW,
+                                        device="cuda")
+        cache = serve.make_semcache(train, cap=256, drift=drift, device="cuda")
+        sched = serve.build_scheduler(
+            engine, score_batch=64, max_batch=8, max_wait_s=0.02, queue_capacity=256,
+            semcache=cache, governor=governor,
+            tracer=recorder.scoped(0) if stack else None, slo=slo, flusher=flusher,
+            device="cuda")
+        if stack:
+            obs.register_scheduler_metrics(registry, sched)
+            obs.register_governor_metrics(registry, governor, lambda: sched.clock.now)
+            obs.register_slo_metrics(registry, slo, lambda: sched.clock.now)
+            obs.register_stream_metrics(registry, flusher)
+        summary = sched.run_trace(trace)
+        torch.cuda.synchronize()
+    finally:
+        ops.set_kernel_profiler(None)
+    wall = time.perf_counter() - t0
+    got = counts.take()
+    n_done = summary["completed"] + summary["rejected"] + summary["expired"]
+    check(n_done == OBS_REQUESTS, f"obs trace accounts for {n_done} of {OBS_REQUESTS}")
+    out = {"wall": wall, "launches": got, "summary": summary, "cache": cache.report(),
+           "lam": governor.lam}
+    if not stack:
+        return out
+    t0 = time.perf_counter()
+    slo.check(sched.clock.now, force=True)
+    flusher.finalize(sched.clock.now)
+    doc = obs.concat_dir(out_dir)
+    out.update(
+        t_export=time.perf_counter() - t0, doc=doc, profiler=profiler, recorder=recorder,
+        slo=slo, flusher=flusher,
+        trace_json=obs.trace.trace_doc_to_json(doc),
+        snapshot=json.dumps(registry.snapshot(deterministic=True), sort_keys=True),
+        prom=registry.prometheus(deterministic=True),
+        segments=_segment_bytes(out_dir))
+    return out
+
+
+def phase_obs(engine, data, rx, pl2, kernel_times, pl2_times) -> dict:
+    """The obs stack on the cached serving path at full width: a sampled,
+    capped recorder, the metrics registry, SLOs, a streaming flusher and the
+    kernel-dispatch profiler, twice on one seeded neardup trace (their
+    deterministic artifacts byte-identical), and once without the stack."""
+    from repro_torch import obs
+
+    counts = _Launches(rx, pl2)
+    lam = engine.lam
+    engine.lam = 1.0
+    base = os.path.join(ROOT, "build", "obs_smoke")
+    try:
+        runs = [_obs_run(engine, data, counts, os.path.join(base, f"run{i}"), stack)
+                for i, stack in enumerate((True, True, False))]
+    finally:
+        engine.lam = lam
+    a, b, off = runs
+    for i, run in enumerate((a, b)):
+        doc, prof = run["doc"], run["profiler"].summary()
+        errs = obs.validate_chrome_trace(doc) + obs.validate_span_tree(doc)
+        check(not errs, f"obs run {i}: trace validates ({errs[:3]})")
+        for kernel, op in (("router_xattn", "router_xattn_pool"), ("pairwise_l2", "pairwise_l2")):
+            calls = prof.get(op, {}).get("calls", 0)
+            check(calls == run["launches"][kernel] > 0,
+                  f"obs run {i}: profiler saw {calls} {op} dispatches, the kernel "
+                  f"launched {run['launches'][kernel]} times")
+        n_req = sum(1 for e in doc["traceEvents"] if e.get("name") == "request")
+        check(0 < n_req <= OBS_REQUESTS, f"obs run {i}: {n_req} request trees kept")
+    check(a["trace_json"] == b["trace_json"], "obs: the two runs' traces are byte-identical")
+    check(a["segments"] == b["segments"],
+          f"obs: the two runs' {len(a['segments'])} segment files are byte-identical")
+    check(a["snapshot"] == b["snapshot"] and a["prom"] == b["prom"],
+          "obs: the two runs' deterministic metrics are byte-identical")
+    check(a["summary"]["completed"] == off["summary"]["completed"]
+          and a["summary"]["per_member_counts"] == off["summary"]["per_member_counts"]
+          and a["summary"]["total_spend"] == off["summary"]["total_spend"],
+          "obs: the stack leaves what is served unchanged")
+    rec, fl = a["recorder"], a["flusher"]
+    stats = rec.drop_stats
+    log(f"[obs] {OBS_REQUESTS} neardup requests at lambda 1 (governor {OBS_BUDGET[0]} $ per "
+        f"{OBS_BUDGET[1]} s, final lambda {a['lam']:.4g}), cache "
+        f"{a['cache']['served']} served / {a['cache']['lookups']} lookups")
+    log(f"[obs] recorder: {stats['events']} events, {stats['requests_closed']} trees closed, "
+        f"{stats['requests_sampled_out']} sampled out, {stats['requests_shed']} shed "
+        f"(cap {OBS_CAP}), peak {rec.peak_buffered} buffered; {fl.seq} flushes, "
+        f"{len(a['segments'])} files; trace {len(a['trace_json'])} bytes, "
+        f"{len(a['doc']['traceEvents'])} events (kernel spans, wall clock, left out)")
+    log(f"[obs] slo: {a['slo'].alerts_total} alert transitions, firing "
+        f"{a['slo'].firing() or 'none'}; validators clean; both runs byte-identical "
+        f"(trace, {len(a['segments'])} segments, metrics JSON and Prometheus text)")
+    log(f"[obs] trace wall: stack on {a['wall']:.3f}s and {b['wall']:.3f}s, off "
+        f"{off['wall']:.3f}s ({(a['wall'] + b['wall']) / 2 / off['wall']:.3f}x); export "
+        f"{a['t_export']:.3f}s")
+    prof = a["profiler"].summary()
+    for op, label, times in (
+            ("router_xattn_pool", "router_xattn", [("[kernel] B 8", kernel_times[0]),
+                                                   ("[kernel] B 256", kernel_times[1])]),
+            ("pairwise_l2", "pairwise_l2", [(f"[pairwise_l2] {t['call_site']}", t)
+                                            for t in pl2_times])):
+        p = prof[op]
+        log(f"[obs] profiler {op}: {p['calls']} calls = {a['launches'][label]} launches, "
+            f"{p['elements']} rows, p50 {p['p50_us']:.1f} us, p99 {p['p99_us']:.1f} us "
+            f"(synced dispatch, host clock); beside "
+            + ", ".join(f"{name} {t['ms'] * 1e3:.1f} us/call" for name, t in times))
+    total = {k: a["launches"][k] + b["launches"][k] + off["launches"][k]
+             for k in a["launches"]}
+    log(f"[obs] launches on the obs path (three runs): router_xattn "
+        f"{total['router_xattn']}, pairwise_l2 {total['pairwise_l2']}")
+    return {"launches": total, "profiler": prof, "wall_on": [a["wall"], b["wall"]],
+            "wall_off": off["wall"]}
+
+
+def _fleet_rollup(summary) -> dict:
+    """The plane's summary without its wall-clock fields (routing latency)."""
+    return {k: v for k, v in summary.items() if not k.startswith("routing_")}
+
+
+def _fleet_run(engine, args, data, counts) -> dict:
+    from repro_torch import obs
+    from repro_torch.launch import serve
+
+    tr, _, te = data.split(seed=0)
+    vocab = min(m.cfg.vocab_size for m in engine.pool)
+    truth = serve.quality_truth(engine.pool, data)
+    trace = _online_trace(args.trace, args.requests, 0, data, te, vocab)
+    recorder = obs.TraceRecorder(label="chip-fleet-drift")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    counts.start()
+    t0 = time.perf_counter()
+    plane, ledger = serve.build_plane(engine, args, data.emb[tr], truth, None,
+                                      recorder=recorder)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    mem_delta = (torch.cuda.memory_allocated() - mem0) / 2**30
+    workers = sorted(plane.workers.values(), key=lambda w: w.wid)
+    check(all(w.engine.pool is engine.pool for w in workers),
+          "every worker's engine holds the one pool")
+    secs = {"featurizer": 0.0, "scoring": 0.0, "generation": 0.0, "sync rounds": 0.0}
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            secs[name] += time.perf_counter() - t
+            return out
+        return wrapper
+
+    hooks = [(w.engine, attr, name) for w in workers for attr, name in
+             (("embed", "featurizer"), ("score_emb", "scoring"),
+              ("generate_member", "generation"))]
+    hooks.append((plane.coordinator, "sync_round", "sync rounds"))
+    for obj, attr, name in hooks:
+        setattr(obj, attr, timed(name, getattr(obj, attr)))
+    t0 = time.perf_counter()
+    try:
+        summary = plane.run_trace(trace)
+        torch.cuda.synchronize()
+    finally:
+        for obj, attr, _ in hooks:
+            delattr(obj, attr)
+    wall = time.perf_counter() - t0
+    got = counts.take()
+    return {"plane": plane, "ledger": ledger, "summary": summary, "recorder": recorder,
+            "wall": wall, "t_build": t_build, "mem_delta": mem_delta, "secs": secs,
+            "launches": got, "trace": trace}
+
+
+def phase_fleet(engine, data, rx, pl2) -> dict:
+    """Three in-process workers on the default pool (``serve.build_plane``
+    from the serve CLI's flags): online with leader/follower sync, a crash
+    and rejoin, one shared budget ledger; run twice from one seed."""
+    from repro_torch import obs
+    from repro_torch.launch import serve
+
+    args = serve.parse_args(FLEET_ARGV)
+    counts = _Launches(rx, pl2)
+    runs = [_fleet_run(engine, args, data, counts) for _ in range(2)]
+    tr, _, te = data.split(seed=0)
+    q = data.emb[te][:HELD_OUT_CHECK]
+    errs = []
+    for i, run in enumerate(runs):
+        plane, summary = run["plane"], run["summary"]
+        stats = plane.coordinator.stats
+        alive = [w for w in plane.workers.values() if w.alive]
+        versions = {w.router_version for w in alive}
+        n_done = summary["completed"] + summary["rejected"] + summary["expired"]
+        check(n_done == args.requests, f"fleet run {i}: {n_done} of {args.requests}")
+        check(len(alive) == FLEET_WORKERS, f"fleet run {i}: {len(alive)} workers alive")
+        check(len(versions) == 1, f"fleet run {i}: alive workers on versions {versions}")
+        check(stats["stale_rejected"] == 0, f"fleet run {i}: stale publishes rejected "
+                                            f"{stats['stale_rejected']}")
+        check(summary["reassigned"] > 0, f"fleet run {i}: reassigned {summary['reassigned']}")
+        check(stats["updates"] > 0, f"fleet run {i}: {stats['updates']} leader updates")
+        check(abs(run["mem_delta"]) <= FLEET_SHARED_GIB,
+              f"fleet run {i}: building {FLEET_WORKERS} workers took "
+              f"{run['mem_delta']:.3f} GiB of device memory")
+        for w in sorted(alive, key=lambda w: w.wid):
+            errs.append(_kernel_vs_plain(w.engine, q, f"fleet run {i} w{w.wid} v"
+                                                      f"{w.router_version}"))
+        doc = run["recorder"].chrome_trace()
+        bad = obs.validate_chrome_trace(doc) + obs.validate_span_tree(doc)
+        check(not bad, f"fleet run {i}: trace validates ({bad[:3]})")
+        n_rpc = sum(1 for e in doc["traceEvents"] if e.get("cat") == "rpc")
+        check(n_rpc > 0, f"fleet run {i}: {n_rpc} rpc spans")
+        check(run["launches"]["router_xattn"] > 0 and run["launches"]["pairwise_l2"] > 0,
+              f"fleet run {i}: launches {run['launches']}")
+        run["n_rpc"] = n_rpc
+    a, b = runs
+    check(_fleet_rollup(a["summary"]) == _fleet_rollup(b["summary"]),
+          "fleet: the two seeded runs' rollups are equal")
+    check(a["recorder"].to_json() == b["recorder"].to_json(),
+          "fleet: the two seeded runs' traces are byte-identical")
+    plane, s, ledger = a["plane"], a["summary"], a["ledger"]
+    st = plane.coordinator.stats
+    for line in plane.report(s.get("duration_s")).splitlines():
+        log(f"[fleet] {line}")
+    for w in sorted(plane.workers.values(), key=lambda w: w.wid):
+        log(f"[fleet] w{w.wid} {w.adapter.report()}")
+    g = ledger.summary(max(w.clock.now for w in plane.workers.values()))
+    log(f"[fleet] shared ledger ${g['budget_per_window']:.4f} per {args.budget_window}s: "
+        f"spend ${g['total_spend']:.6f}, final lambda {g['lam']:.6g} (nominal "
+        f"{g['lam0']:.3g}), tightened x{int(g['tightened'])} relaxed "
+        f"x{int(g['relaxed'])} throttled x{ledger.throttled}")
+    log(f"[fleet] syncs {st['syncs']}, merged {st['merged']}, updates {st['updates']} "
+        f"({st['update_steps']} steps), broadcasts {st['broadcasts']}, stale rejected "
+        f"{st['stale_rejected']}, reassigned {s['reassigned']}; {a['n_rpc']} rpc spans; "
+        f"router_xattn vs plain on every alive worker, max |err| {max(errs):.3g}")
+    for i, run in enumerate(runs):
+        wall = run["wall"]
+        rest = wall - sum(run["secs"].values())
+        log(f"[fleet] run {i}: build {run['t_build']:.3f}s (device memory "
+            f"{run['mem_delta'] * 1024:+.1f} MiB for {FLEET_WORKERS} workers); trace wall "
+            f"{wall:.3f}s by part: " + ", ".join(
+                f"{name} {v:.3f}s ({v / wall:.4f})" for name, v in
+                [*run["secs"].items(), ("plane and the rest", rest)]))
+    total = {k: a["launches"][k] + b["launches"][k] for k in a["launches"]}
+    log(f"[fleet] launches on the fleet path (two runs): router_xattn "
+        f"{total['router_xattn']}, pairwise_l2 {total['pairwise_l2']}")
+    return {"launches": total, "max_abs_err": max(errs), "wall_s": [a["wall"], b["wall"]],
+            "mem_delta_gib": [a["mem_delta"], b["mem_delta"]], "lam": g["lam"]}
+
+
 def bench_defaults() -> tuple:
     """(queries, epochs): the defaults of REPRO_BENCH_QUERIES and
     REPRO_BENCH_EPOCHS in benchmarks/common.py, read from the file (the
@@ -2606,9 +2928,18 @@ def main() -> int:
     online = phase_online(engine, rx, pl2)
     log(f"[online] phase wall {time.perf_counter() - t0:.2f}s")
 
+    data = online.pop("data")
     t0 = time.perf_counter()
-    cascade = phase_cascade(engine, online.pop("data"), rx, pl2)
+    cascade = phase_cascade(engine, data, rx, pl2)
     log(f"[cascade] phase wall {time.perf_counter() - t0:.2f}s")
+
+    t0 = time.perf_counter()
+    obs_run = phase_obs(engine, data, rx, pl2, (timing, timing_256), pl2_timing)
+    log(f"[obs] phase wall {time.perf_counter() - t0:.2f}s")
+
+    t0 = time.perf_counter()
+    fleet = phase_fleet(engine, data, rx, pl2)
+    log(f"[fleet] phase wall {time.perf_counter() - t0:.2f}s")
 
     del engine
     gc.collect()
@@ -2657,6 +2988,8 @@ def main() -> int:
                              "trace": trace["launches"]["router_xattn"],
                              "online": online["launches"]["router_xattn"],
                              "cascade": cascade["launches"]["router_xattn"],
+                             "obs": obs_run["launches"]["router_xattn"],
+                             "fleet": fleet["launches"]["router_xattn"],
                              "train": train["launches"], "table2": table2["launches"],
                              "attn_long": attn_long["launches"]["router_xattn"],
                              "recurrent": recurrent["launches"]["router_xattn"],
@@ -2664,7 +2997,8 @@ def main() -> int:
         "max_abs_err_trained": {"train": train["max_abs_err"],
                                 "table2": table2["timing"]["max_abs_err"],
                                 "online_after_swap": online["max_abs_err_after_swap"],
-                                "online_K_4": online["max_abs_err_k4"]},
+                                "online_K_4": online["max_abs_err_k4"],
+                                "fleet_after_broadcast": fleet["max_abs_err"]},
         "max_abs_err": err["float32"], "max_abs_err_bf16": err["bfloat16"],
         "shape": {"B": N_REQUESTS, "K": len(POOL), "d": 20, "dq": 768},
         **timing, "library_ms": None, "at_B_256": timing_256,
@@ -2680,6 +3014,8 @@ def main() -> int:
                              "lookup": lookup["launches"],
                              "online": online["launches"]["pairwise_l2"],
                              "cascade": cascade["launches"]["pairwise_l2"],
+                             "obs": obs_run["launches"]["pairwise_l2"],
+                             "fleet": fleet["launches"]["pairwise_l2"],
                              "attn_long": attn_long["launches"]["pairwise_l2"],
                              "recurrent": recurrent["launches"]["pairwise_l2"],
                              "multimodal": multimodal["launches"]["pairwise_l2"]},

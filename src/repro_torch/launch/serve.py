@@ -14,6 +14,12 @@
         --trace drift --online --requests 200 --budget 0.02 --feedback-delay 0.01
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --trace neardup --cascade --semcache --max-legs 3 --requests 200
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --trace neardup --semcache --trace-out t.json --metrics-out m.json \
+        --trace-profile --scrape-every 0.05 --trace-sample 0.25
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --trace drift --online --workers 3 --crash-at 0.08 --rejoin-at 0.2 \
+        --budget 0.01
 
 builds the pool members at their published widths and depths on the CUDA
 card (``--smoke`` builds the reduced configs instead, ``--device cpu``
@@ -53,6 +59,28 @@ budget governor, whose headroom anneals exploration and gates escalation.
 With ``--online`` the adapter's drift detector drives the cache's
 invalidation, as in the reference; otherwise the cache owns one.
 
+Observability, as the reference's flags: ``--trace-out`` writes the
+run's per-request spans as Chrome-trace JSON (byte-identical across
+replays of a seed), ``--metrics-out`` a metrics snapshot (``.prom`` /
+``.txt`` Prometheus text, else canonical JSON), ``--metrics-port`` serves
+the live registry on localhost, ``--trace-profile`` installs the
+kernel-dispatch profiler (each ``router_xattn_pool`` / ``pairwise_l2``
+dispatch timed under a device sync; removed again when the run ends), and
+``--scrape-every`` / ``--obs-dir`` / ``--trace-sample`` / ``--trace-head`` /
+``--trace-cap`` stream sampled segments. ``--slo-*`` add burn-rate SLOs,
+and ``--slo-class K`` sheds the lowest class while one fires.
+
+``--workers N`` (N > 1) serves the trace on the in-process serving plane:
+N workers over :class:`~repro_torch.distributed.LocalTransport`, each with
+a :class:`RoutedEngine` of its own over the ONE pool and router (shared
+by reference: members' params are not copied), its own queue, clock,
+cache and cascade, one shared budget ledger with ``--budget``, and with
+``--online`` follower adapters whose replay the coordinator merges onto
+the leader every ``--sync-every`` virtual seconds before it broadcasts
+the updated router. ``--crash-at`` / ``--rejoin-at`` / ``--crash-worker``
+inject a crash and rejoin. ``--transport socket`` (workers as OS
+processes) is not ported yet and raises.
+
 Every random path derives from ``--seed``: pool init from torch
 generators on the serving device, the predictors' init likewise, the
 model embeddings, the corpus, the k-means seeds, the batch order, the
@@ -61,6 +89,8 @@ trace and the requests from numpy.
 from __future__ import annotations
 
 import argparse
+import copy
+import json
 import time
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -78,6 +108,10 @@ from repro_torch.core.predictors import PREDICTORS
 from repro_torch.core.router import PredictiveRouter
 from repro_torch.data.featurizer import EMB_DIM
 from repro_torch.data.routerbench import generate
+from repro_torch.distributed import (
+    Coordinator, PlaneEvent, ServingPlane, SharedBudgetLedger, SyncConfig, WorkerNode,
+)
+from repro_torch.kernels import ops as kops
 from repro_torch.models import lm as lm_mod
 from repro_torch.online import (
     DelayedFeedback, DriftDetector, ExplorationConfig, MembershipTracker, OnlineAdapter,
@@ -85,8 +119,13 @@ from repro_torch.online import (
 )
 from repro_torch.serving.budget import BudgetGovernor
 from repro_torch.serving.engine import PoolMember, RoutedEngine, arch_cost_rate
+from repro_torch.obs import (
+    KernelProfiler, MetricsRegistry, MetricsServer, ObsFlusher, TraceRecorder, TraceSampler,
+    build_slo_tracker, concat_dir, register_governor_metrics, register_plane_metrics,
+    register_scheduler_metrics, register_slo_metrics, register_stream_metrics,
+)
 from repro_torch.serving.scheduler import (
-    MicroBatchScheduler, SchedulerConfig, default_service_model,
+    MicroBatchScheduler, SchedulerConfig, SimClock, default_service_model,
 )
 from repro_torch.serving.semcache import SemanticCache, calibrate_radius
 from repro_torch.serving.traffic import TRACE_KINDS, TraceConfig, make_trace
@@ -333,10 +372,15 @@ def build_scheduler(engine: RoutedEngine, *, score_batch: int = 64,
                     governor: Optional[BudgetGovernor] = None,
                     adapter: Optional[OnlineAdapter] = None,
                     cascade: Optional[CascadeCoordinator] = None,
+                    tracer=None, slo=None, flusher=None,
+                    clock: Optional[SimClock] = None,
                     device: Optional[DeviceLike] = None) -> MicroBatchScheduler:
     """The streaming scheduler over ``engine`` on the deterministic
-    service-time model. The engine, the cache and the drift detectors must
-    all run on ``device`` (the CUDA card unless the caller names another)."""
+    service-time model, with the obs hooks (``tracer``: a recorder's
+    worker-scoped view, ``slo``: an SLO tracker, ``flusher``: an
+    :class:`ObsFlusher`) when given. The engine, the cache and the drift
+    detectors must all run on ``device`` (the CUDA card unless the caller
+    names another)."""
     device = resolve_device(device)
     parts = [("engine", engine.device)]
     if semcache is not None:
@@ -351,25 +395,183 @@ def build_scheduler(engine: RoutedEngine, *, score_batch: int = 64,
     return MicroBatchScheduler(
         engine, SchedulerConfig(score_batch=score_batch, max_batch=max_batch,
                                 max_wait_s=max_wait_s, queue_capacity=queue_capacity),
-        governor=governor, service_time=default_service_model(),
-        adapter=adapter, cascade=cascade, semcache=semcache)
+        governor=governor, clock=clock, service_time=default_service_model(),
+        adapter=adapter, cascade=cascade, semcache=semcache,
+        tracer=tracer, slo=slo, flusher=flusher)
+
+
+def _streaming_requested(args) -> bool:
+    return (args.scrape_every is not None or args.trace_sample is not None
+            or args.trace_cap is not None or args.obs_dir is not None)
+
+
+def setup_obs(args):
+    """(recorder, registry, profiler, flusher) from the obs flags, as the
+    reference's ``_setup_obs``.
+
+    All default to None, and the runtime's tracer branches then cost
+    nothing. Streaming mode (any of ``--scrape-every/--trace-sample/
+    --trace-cap/--obs-dir``) builds the recorder with the sampler and cap
+    and an :class:`ObsFlusher` over the segment directory; with no
+    ``--scrape-every`` the flusher still samples, in one final flush.
+    ``--trace-profile`` installs the kernel-dispatch profiler globally
+    (:func:`save_obs` and :func:`run_trace_mode` remove it again).
+    ``--metrics-port`` forces the registry on so the endpoint has
+    something to serve.
+    """
+    recorder = registry = profiler = flusher = None
+    streaming = _streaming_requested(args)
+    label = f"serve-{args.trace}-seed{args.seed}"
+    if args.trace_out or args.trace_profile or streaming:
+        sampler = None
+        if args.trace_sample is not None:
+            sampler = TraceSampler(args.trace_sample, seed=args.seed,
+                                   head=args.trace_head)
+        recorder = TraceRecorder(label=label, sampler=sampler,
+                                 max_buffered_per_worker=args.trace_cap)
+    if args.metrics_out or args.metrics_port is not None or streaming:
+        registry = MetricsRegistry()
+    if streaming:
+        args.obs_dir = args.obs_dir or f"obs_{args.trace}_seed{args.seed}"
+        flusher = ObsFlusher(
+            args.obs_dir, recorder=recorder, registry=registry,
+            scrape_every_s=args.scrape_every, label=label,
+            include_wall=args.trace_profile,
+            deterministic_metrics=not args.trace_profile)
+    if args.trace_profile:
+        profiler = KernelProfiler(tracer=recorder)
+        kops.set_kernel_profiler(profiler)
+    return recorder, registry, profiler, flusher
+
+
+def save_obs(args, recorder, registry, profiler, flusher=None,
+             now: float = 0.0) -> None:
+    """Write the obs artifacts and uninstall the profiler, as the
+    reference's ``_save_obs``. ``now`` is the run's final virtual time; in
+    streaming mode ``--trace-out`` is the concatenation of the segments."""
+    if profiler is not None:
+        kops.set_kernel_profiler(None)
+        print(profiler.report())
+        if registry is not None:
+            profiler.register_metrics(registry)
+    if flusher is not None:
+        flusher.finalize(now)
+        stats = recorder.drop_stats
+        print(f"obs segments written to {args.obs_dir} "
+              f"({flusher.seq} flushes, peak {recorder.peak_buffered} "
+              f"buffered events, {stats['requests_sampled_out']} trees "
+              f"sampled out, {stats['requests_shed']} shed)")
+        if args.trace_out:
+            with open(args.trace_out, "w") as fh:
+                fh.write(json.dumps(concat_dir(args.obs_dir), sort_keys=True,
+                                    separators=(",", ":")))
+            print(f"concatenated trace written to {args.trace_out}")
+    elif recorder is not None and args.trace_out:
+        recorder.save(args.trace_out, include_wall=args.trace_profile)
+        print(f"trace written to {args.trace_out} "
+              f"({recorder.n_events} events)")
+    if registry is not None and args.metrics_out:
+        if args.metrics_out.endswith((".prom", ".txt")):
+            registry.save_prometheus(args.metrics_out)
+        else:
+            # Deterministic unless wall-clock data was asked for.
+            registry.save(args.metrics_out, deterministic=not args.trace_profile)
+        print(f"metrics snapshot written to {args.metrics_out} "
+              f"({len(registry)} series)")
+
+
+def make_slo(args, tracer=None):
+    """SLO tracker from the ``--slo-*`` flags (None when none is set)."""
+    return build_slo_tracker(
+        tracer=tracer, p95_target_s=args.slo_p95,
+        miss_rate_budget=args.slo_miss_rate,
+        quality_floor=args.slo_quality_floor,
+        spend_per_window=args.slo_spend, window_s=args.slo_window)
+
+
+def print_slo(slo, now: float) -> None:
+    if slo is None:
+        return
+    firing = slo.firing()
+    burns = {name: f"{b['long']:.2f}x" for name, b in slo.burn_rates(now).items()}
+    print(f"slo: {slo.alerts_total} alert transitions  "
+          f"firing {firing if firing else 'none'}  long-window burn "
+          + "  ".join(f"{k}={v}" for k, v in burns.items()))
+
+
+def _print_cache(cache: SemanticCache, prefix: str = "") -> None:
+    rep = cache.report()
+    print(f"{prefix}semcache: {rep['served']} served / {rep['lookups']} lookups "
+          f"(hit rate {rep['hit_rate']:.2f})  "
+          f"{rep['fallthroughs']} fallthroughs  "
+          f"{rep['stale_hits']} stale  {rep['evicted']} evicted  "
+          f"{rep['invalidations']} invalidated  "
+          f"{rep['entries']} entries")
+    if cache.drift is not None:
+        print(f"{prefix}drift: {cache.drift.windows_seen} windows, "
+              f"{cache.drift.alarms} alarms")
+
+
+def _print_budget(governor, args, now: float, prefix: str = "budget",
+                  extra: str = "") -> None:
+    g = governor.summary(now)
+    print(f"{prefix} ${g['budget_per_window']:.4f}/{args.budget_window}s "
+          f"window  spend ${g['total_spend']:.6f}  "
+          f"final lambda {g['lam']:.3g} (nominal {g['lam0']:.3g})  "
+          f"tightened x{int(g['tightened'])} relaxed x{int(g['relaxed'])}{extra}")
 
 
 def run_trace_mode(engine: RoutedEngine, args) -> dict:
     """Replay ``args.trace`` over the held-out split through the scheduler
-    (with the semantic cache, the online adapter, the cascade and the
-    budget governor as ``args`` asks); print the report."""
+    (with the semantic cache, the online adapter, the cascade, the budget
+    governor and the obs stack as ``args`` asks), on one scheduler or, with
+    ``--workers N``, on the in-process serving plane; print the report."""
     data, _, _ = synthetic_pool_traffic(engine.pool, seed=args.seed)
     tr, _, te = data.split(seed=args.seed)
     fit_router_centroids(engine.router, data.emb[tr], seed=args.seed,
                          device=engine.device)
+    truth = quality_truth(engine.pool, data) if (args.online or args.cascade) else None
+    obs = setup_obs(args)
+    mserver = None
+    try:
+        radius = args.cache_radius
+        if args.semcache:
+            if radius is None:
+                radius = calibrate_radius(data.emb[tr], device=engine.device)
+            print(f"semcache radius {radius:.4f}"
+                  + (" (training-split NN-distance quantile)"
+                     if args.cache_radius is None else ""))
+        trace = make_trace(
+            TraceConfig(kind=args.trace, n_requests=args.requests, rate=args.rate,
+                        seed=args.seed, max_new=args.max_new or 4, prompt_len_max=48,
+                        vocab=min(m.cfg.vocab_size for m in engine.pool)),
+            texts=[data.texts[i] for i in te],
+            benchmarks=[data.benchmark[i] for i in te])
+        if args.slo_class > 0:
+            # Deterministic class assignment, in arrival order.
+            for i, r in enumerate(trace):
+                r.slo_class = i % args.slo_class
+        if args.metrics_port is not None:
+            mserver = MetricsServer(obs[1], port=args.metrics_port)
+            print(f"metrics endpoint: http://127.0.0.1:{mserver.start()}/metrics")
+        run = _run_plane if args.workers > 1 else _run_solo
+        return run(engine, args, data.emb[tr], truth, radius, trace, obs)
+    finally:
+        if mserver is not None:
+            mserver.stop()
+        if obs[2] is not None:
+            kops.set_kernel_profiler(None)
+
+
+def _run_solo(engine, args, train_emb, truth, radius, trace, obs) -> dict:
+    """One scheduler (``--workers 1``)."""
+    recorder, registry, profiler, flusher = obs
     governor = (BudgetGovernor(args.budget, args.budget_window, lam0=args.lam)
                 if args.budget > 0 else None)
-    truth = quality_truth(engine.pool, data) if (args.online or args.cascade) else None
     adapter = None
     if args.online:
         adapter = make_adapter(
-            engine, truth, data.emb[tr], governor=governor,
+            engine, truth, train_emb, governor=governor,
             update_every=args.online_update_every, epsilon=args.epsilon,
             feedback_delay=args.feedback_delay,
             refresh_established=args.refresh_established, seed=args.seed)
@@ -381,52 +583,156 @@ def run_trace_mode(engine: RoutedEngine, args) -> dict:
     cache = None
     if args.semcache:
         drift = None if adapter is not None else build_drift_proto(
-            data.emb[tr], engine.router.centroids, seed=args.seed, device=engine.device)
-        cache = make_semcache(data.emb[tr], radius=args.cache_radius,
-                              cap=args.cache_cap, drift=drift, device=engine.device)
-        print(f"semcache radius {cache.radius:.4f}"
-              + (" (training-split NN-distance quantile)"
-                 if args.cache_radius is None else ""))
-    trace = make_trace(
-        TraceConfig(kind=args.trace, n_requests=args.requests, rate=args.rate,
-                    seed=args.seed, max_new=args.max_new or 4, prompt_len_max=48,
-                    vocab=min(m.cfg.vocab_size for m in engine.pool)),
-        texts=[data.texts[i] for i in te],
-        benchmarks=[data.benchmark[i] for i in te])
+            train_emb, engine.router.centroids, seed=args.seed, device=engine.device)
+        cache = make_semcache(train_emb, radius=radius, cap=args.cache_cap,
+                              drift=drift, device=engine.device)
+    slo = make_slo(args, tracer=recorder)
     sched = build_scheduler(engine, score_batch=args.score_batch,
                             max_batch=args.max_batch, semcache=cache,
                             governor=governor, adapter=adapter, cascade=cascade,
-                            device=engine.device)
+                            tracer=recorder.scoped(0) if recorder is not None else None,
+                            slo=slo, flusher=flusher, device=engine.device)
+    sched.slo_enforce = args.slo_class > 0
+    if registry is not None:
+        register_scheduler_metrics(registry, sched)
+        if governor is not None:
+            register_governor_metrics(registry, governor, lambda: sched.clock.now)
+        if slo is not None:
+            register_slo_metrics(registry, slo, lambda: sched.clock.now)
+        if flusher is not None:
+            register_stream_metrics(registry, flusher)
     summary = sched.run_trace(trace)
     print(f"trace={args.trace} requests={args.requests} seed={args.seed}")
     print(sched.telemetry.report(summary.get("duration_s")))
     if cascade is not None:
         print(cascade.report())
     if cache is not None:
-        rep = cache.report()
-        print(f"semcache: {rep['served']} served / {rep['lookups']} lookups "
-              f"(hit rate {rep['hit_rate']:.2f})  "
-              f"{rep['fallthroughs']} fallthroughs  "
-              f"{rep['stale_hits']} stale  {rep['evicted']} evicted  "
-              f"{rep['invalidations']} invalidated  "
-              f"{rep['entries']} entries")
-        if cache.drift is not None:
-            print(f"drift: {cache.drift.windows_seen} windows, "
-                  f"{cache.drift.alarms} alarms")
+        _print_cache(cache)
     if adapter is not None:
         print(adapter.report())
         print(f"drift: {adapter.drift.windows_seen} windows, "
               f"{adapter.drift.alarms} alarms")
     if governor is not None:
-        g = governor.summary(sched.clock.now)
-        print(f"budget ${g['budget_per_window']:.4f}/{args.budget_window}s "
-              f"window  spend ${g['total_spend']:.6f}  "
-              f"final lambda {g['lam']:.3g} (nominal {g['lam0']:.3g})  "
-              f"tightened x{int(g['tightened'])} relaxed x{int(g['relaxed'])}")
+        _print_budget(governor, args, sched.clock.now)
+    print_slo(slo, sched.clock.now)
+    save_obs(args, recorder, registry, profiler, flusher, now=sched.clock.now)
     return summary
 
 
-def main(argv: Optional[Sequence[str]] = None) -> int:
+def build_plane_worker(engine: RoutedEngine, args, wid: int, *, governor, drift_proto,
+                       truth, train_emb, radius, recorder, slo) -> WorkerNode:
+    """One in-process plane worker, as the reference's ``build_plane_worker``.
+
+    Its :class:`RoutedEngine` shares ``engine``'s router and pool by
+    reference (its own cached pool projections, no copy of any member's
+    params); its adapter is a follower (``defer_updates=True``) seeded
+    ``seed + 101 * wid + 1`` with a deep copy of the fitted ``drift_proto``;
+    it has its own cascade and semantic cache, and the shared ``governor``
+    (the ledger), ``recorder`` (through its worker-scoped view) and ``slo``.
+    """
+    weng = RoutedEngine(router=engine.router, pool=engine.pool, lam=args.lam,
+                        device=engine.device)
+    adapter = None
+    if args.online:
+        wseed = args.seed + 101 * wid + 1
+        quality_feedback, feedback_source, stage = make_feedback(
+            truth, args.feedback_delay, wseed)
+        membership = (MembershipTracker(weng, refresh_established=True)
+                      if args.refresh_established else None)
+        adapter = OnlineAdapter(
+            weng, quality_feedback, governor=governor,
+            config=OnlineUpdateConfig(update_every=args.online_update_every),
+            exploration=ExplorationConfig(epsilon=args.epsilon, seed=wseed),
+            drift=copy.deepcopy(drift_proto), feedback_source=feedback_source,
+            stage=stage, membership=membership, defer_updates=True, seed=wseed)
+    cascade = None
+    if args.cascade:
+        cascade = make_cascade(weng, truth, governor=governor, max_legs=args.max_legs,
+                               beta=args.cascade_beta, margin=args.cascade_margin,
+                               min_headroom=args.cascade_min_headroom)
+    cache = None
+    if args.semcache:
+        drift = None if adapter is not None else build_drift_proto(
+            train_emb, weng.router.centroids, seed=args.seed, device=weng.device)
+        cache = make_semcache(train_emb, radius=radius, cap=args.cache_cap,
+                              drift=drift, device=weng.device)
+    sched = build_scheduler(weng, score_batch=args.score_batch,
+                            max_batch=args.max_batch, semcache=cache,
+                            governor=governor, adapter=adapter, cascade=cascade,
+                            tracer=recorder.scoped(wid) if recorder is not None else None,
+                            slo=slo, clock=SimClock(), device=weng.device)
+    sched.slo_enforce = args.slo_class > 0
+    return WorkerNode(wid, weng, sched, adapter)
+
+
+def build_plane(engine: RoutedEngine, args, train_emb: np.ndarray, truth, radius, *,
+                recorder=None, slo=None, flusher=None):
+    """(plane, ledger) for ``args.workers`` in-process workers over
+    LocalTransport, each from :func:`build_plane_worker`; the ledger is the
+    shared :class:`SharedBudgetLedger` (None without ``--budget``). With
+    ``--online`` the workers' drift detectors are deep copies of one fitted
+    on ``train_emb`` with a window of ``max(16, 48 // N)``: each watches
+    its 1/N share of the traffic."""
+    governor = (SharedBudgetLedger(args.budget, args.budget_window, lam0=args.lam)
+                if args.budget > 0 else None)
+    drift_proto = (build_drift_proto(train_emb, engine.router.centroids,
+                                     window=max(16, 48 // args.workers),
+                                     device=engine.device)
+                   if args.online else None)
+    workers = [build_plane_worker(engine, args, wid, governor=governor,
+                                  drift_proto=drift_proto, truth=truth,
+                                  train_emb=train_emb, radius=radius,
+                                  recorder=recorder, slo=slo)
+               for wid in range(args.workers)]
+    coord = Coordinator(workers, SyncConfig(
+        sync_every_s=args.sync_every, seed=args.seed,
+        update=OnlineUpdateConfig(update_every=args.online_update_every)))
+    events = []
+    if args.crash_at is not None:
+        events.append(PlaneEvent(args.crash_at, "crash", args.crash_worker))
+        if args.rejoin_at is not None:
+            events.append(PlaneEvent(args.rejoin_at, "rejoin", args.crash_worker))
+    plane = ServingPlane(workers, coord, events=events, tracer=recorder, flusher=flusher)
+    return plane, governor
+
+
+def _run_plane(engine, args, train_emb, truth, radius, trace, obs) -> dict:
+    """N in-process workers over LocalTransport (``--workers N``)."""
+    recorder, registry, profiler, flusher = obs
+    # One fleet-level SLO tracker: every worker's finalized requests feed it.
+    slo = make_slo(args, tracer=recorder)
+    plane, governor = build_plane(engine, args, train_emb, truth, radius,
+                                  recorder=recorder, slo=slo, flusher=flusher)
+    workers = list(plane.workers.values())
+    if registry is not None:
+        register_plane_metrics(registry, plane)
+        if slo is not None:
+            register_slo_metrics(registry, slo,
+                                 lambda: max(w.clock.now for w in plane.workers.values()))
+        if flusher is not None:
+            register_stream_metrics(registry, flusher)
+    summary = plane.run_trace(trace)
+    print(f"trace={args.trace} requests={args.requests} seed={args.seed} "
+          f"workers={args.workers}")
+    print(plane.report(summary.get("duration_s")))
+    for w in sorted(workers, key=lambda w: w.wid):
+        if args.cascade:
+            print(f"w{w.wid} {w.scheduler.cascade.report()}")
+        if args.semcache:
+            _print_cache(w.scheduler.semcache, prefix=f"w{w.wid} ")
+        if args.online:
+            print(f"w{w.wid} {w.adapter.report()}")
+    t_end = max(w.clock.now for w in workers)
+    if governor is not None:
+        _print_budget(governor, args, t_end, prefix="shared budget",
+                      extra=f" throttled x{governor.throttled}")
+    print_slo(slo, t_end)
+    save_obs(args, recorder, registry, profiler, flusher, now=t_end)
+    return summary
+
+
+def make_parser() -> argparse.ArgumentParser:
+    """The serve argv schema."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pool", default=DEFAULT_POOL)
     ap.add_argument("--requests", type=int, default=8)
@@ -488,10 +794,89 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="cascade: required expected marginal reward to escalate")
     ap.add_argument("--cascade-min-headroom", type=float, default=0.0,
                     help="cascade: budget headroom below which no leg escalates")
+    ap.add_argument("--workers", type=int, default=1,
+                    help="N > 1 serves the trace on the in-process plane: N "
+                         "workers sharing the pool, leader/follower sync")
+    ap.add_argument("--transport", default="local", choices=["local", "socket"],
+                    help="plane message transport (only local is ported)")
+    ap.add_argument("--sync-every", type=float, default=0.05,
+                    help="virtual seconds between replay-merge/broadcast rounds")
+    ap.add_argument("--crash-at", type=float, default=None,
+                    help="crash --crash-worker at this virtual time")
+    ap.add_argument("--rejoin-at", type=float, default=None,
+                    help="rejoin the crashed worker at this virtual time")
+    ap.add_argument("--crash-worker", type=int, default=1,
+                    help="worker id for the crash/rejoin scenario")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the run's per-request spans as Chrome-trace "
+                         "JSON (byte-identical across replays of a seed)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="metrics snapshot at the end (.prom/.txt: Prometheus "
+                         "text, else canonical JSON)")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                    help="serve the live registry on localhost HTTP for the "
+                         "run (/metrics, /metrics.json; 0 picks a port)")
+    ap.add_argument("--trace-profile", action="store_true",
+                    help="time every kernel dispatch under a device sync and "
+                         "put the wall-clock spans/metrics in the artifacts "
+                         "(which are then not replay-stable)")
+    ap.add_argument("--scrape-every", type=float, default=None, metavar="VIRT_S",
+                    help="streaming obs: flush trace spans and a metrics scrape "
+                         "to segments every this many virtual seconds")
+    ap.add_argument("--obs-dir", default=None, metavar="DIR",
+                    help="segment directory for streaming obs (default "
+                         "obs_<trace>_seed<seed>)")
+    ap.add_argument("--trace-sample", type=float, default=None, metavar="RATE",
+                    help="deterministic per-request trace sampling rate in "
+                         "[0, 1]; anomalous requests are always kept")
+    ap.add_argument("--trace-head", type=int, default=8,
+                    help="always keep the first N request trees")
+    ap.add_argument("--trace-cap", type=int, default=None, metavar="N",
+                    help="per-worker buffered-event cap: new request trees "
+                         "are shed past it")
+    ap.add_argument("--slo-p95", type=float, default=None, metavar="VIRT_S",
+                    help="SLO: p95 e2e latency target (error budget 5%%)")
+    ap.add_argument("--slo-miss-rate", type=float, default=None, metavar="FRAC",
+                    help="SLO: allowed deadline-miss fraction")
+    ap.add_argument("--slo-quality-floor", type=float, default=None,
+                    help="SLO: per-request quality floor (error budget 10%%)")
+    ap.add_argument("--slo-spend", type=float, default=None, metavar="USD",
+                    help="SLO: $ spend allowed per --slo-window")
+    ap.add_argument("--slo-window", type=float, default=0.25, metavar="VIRT_S",
+                    help="SLO compliance window, virtual seconds")
+    ap.add_argument("--slo-class", type=int, default=0, metavar="K",
+                    help="assign trace requests classes in [0, K) round-robin "
+                         "and shed the lowest while an SLO alert fires")
+    return ap
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    """The serve flags, checked: what needs ``--trace``, the crash/rejoin
+    order, and the socket transport's refusal (``ValueError``)."""
+    ap = make_parser()
     args = ap.parse_args(argv)
-    for flag in ("semcache", "online", "cascade"):
-        if getattr(args, flag) and args.trace is None:
-            ap.error(f"--{flag} needs --trace")
+    if args.transport == "socket":
+        raise ValueError(
+            "--transport socket is not ported yet: workers as OS processes "
+            "(SocketTransport, distributed/host.py, distributed/shard.py) come "
+            "with the socket slice of the port; use --transport local")
+    trace_only = ["semcache", "online", "cascade", "trace_out", "metrics_out",
+                  "metrics_port", "trace_profile", "scrape_every", "obs_dir",
+                  "trace_sample", "trace_cap", "crash_at"]
+    for flag in trace_only:
+        if getattr(args, flag) not in (None, False) and args.trace is None:
+            ap.error(f"--{flag.replace('_', '-')} needs --trace")
+    if args.workers > 1 and args.trace is None:
+        ap.error("--workers needs --trace")
+    if (args.crash_at is not None and args.rejoin_at is not None
+            and args.rejoin_at <= args.crash_at):
+        ap.error(f"--rejoin-at ({args.rejoin_at}) must be after "
+                 f"--crash-at ({args.crash_at})")
+    return args
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    args = parse_args(argv)
 
     names = args.pool.split(",")
     t0 = time.perf_counter()

@@ -2,8 +2,9 @@
 mixture-of-experts member, sliding-window and long-prompt attention, the
 recurrent members (xlstm-1.3b, the jamba hybrid), the last three
 configs (musicgen-large, llama4-maverick, cross attention with
-llama-3.2-vision and its stub media), the Mamba scan's gradient, and the
-online adaptation and cascade layers, on the card.
+llama-3.2-vision and its stub media), the Mamba scan's gradient, the
+online adaptation and cascade layers, and the kernel-dispatch profiler, on
+the card.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (marker ``cuda``) and
 skips without one: a CUDA kernel has no CPU mode. The file imports no JAX,
@@ -751,3 +752,50 @@ def test_serve_online_and_cascade_on_the_card(cuda, flags, capsys):
         field = lambda name: int(line.split(name + " ")[1].split()[0])  # noqa: E731
         assert field("finalized") == 48, line
         assert field("legs") == 48 - field("cache-stops") + field("escalations"), line
+
+
+def test_kernel_profiler_counts_one_call_per_launch_on_the_card(cuda, monkeypatch):
+    """With the dispatch profiler installed, each ``router_xattn_pool`` and
+    ``pairwise_l2`` call on CUDA tensors launches its kernel once and lands
+    as one profiled call with its rows, synced to the device inside the
+    span; the result is the plain version's. A refused launch still raises
+    through the profiled wrapper. The profiler is removed in the end."""
+    from repro_torch.obs import KernelProfiler, TraceRecorder
+
+    q, wq, kt, vt, wo, bo = _inputs(5, 37, 3, 20, cuda)
+    x, c = _points(6, 48, 20, 768, cuda)
+    rec = TraceRecorder()
+    prof = KernelProfiler(tracer=rec)
+    rx0, pl0 = router_xattn_cuda.launches, pairwise_l2_cuda.launches
+    ops.set_kernel_profiler(prof)
+    try:
+        for _ in range(3):
+            s = ops.router_xattn_pool(q, wq, kt, vt, wo, bo)
+            d2 = ops.pairwise_l2(x, c)
+        torch.testing.assert_close(s, ref.router_xattn_pool_ref(q, wq, kt, vt, wo, bo),
+                                   rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(d2, ref.pairwise_l2_ref(x, c), rtol=1e-4, atol=1e-4)
+
+        class Refusing:
+            def pairwise_l2_launch(self, *args):
+                return 9
+
+            def pairwise_l2_error_string(self, err):
+                return b"invalid configuration argument"
+
+        monkeypatch.setattr(pairwise_l2_mod, "_library", Refusing)
+        with pytest.raises(RuntimeError, match="launch failed: invalid configuration"):
+            ops.pairwise_l2(x, c)
+    finally:
+        ops.set_kernel_profiler(None)
+    assert router_xattn_cuda.launches - rx0 == 3
+    assert pairwise_l2_cuda.launches - pl0 == 3
+    summary = prof.summary()
+    assert summary["router_xattn_pool"]["calls"] == 3
+    assert summary["router_xattn_pool"]["elements"] == 3 * 37
+    assert summary["pairwise_l2"]["calls"] == 4      # three launches and the refused one
+    assert summary["pairwise_l2"]["elements"] == 4 * 48
+    assert all(v["p50_us"] > 0 for v in summary.values())
+    assert sum(1 for e in rec.events if e[1] == "kernel") == 7
+    assert rec.to_json() == TraceRecorder().to_json()   # wall spans stay out
+    assert ops.get_kernel_profiler() is None

@@ -43,8 +43,15 @@ leaked += sorted(k for k, m in sys.modules.items()
 print(json.dumps({"modules": names, "leaked": leaked}))
 """
 
-# Modules the walk must reach (the online and cascade layers among them).
+# Modules the walk must reach (the online, cascade, obs and fleet layers among them).
 REQUIRED = {
+    "repro_torch.obs", "repro_torch.obs.trace", "repro_torch.obs.metrics",
+    "repro_torch.obs.sampling", "repro_torch.obs.slo", "repro_torch.obs.stream",
+    "repro_torch.obs.scrape", "repro_torch.obs.profiling", "repro_torch.obs.wiring",
+    "repro_torch.distributed", "repro_torch.distributed.messages",
+    "repro_torch.distributed.transport", "repro_torch.distributed.ledger",
+    "repro_torch.distributed.worker", "repro_torch.distributed.coordinator",
+    "repro_torch.distributed.plane",
     "repro_torch.online.drift", "repro_torch.online.replay", "repro_torch.online.staging",
     "repro_torch.online.exploration", "repro_torch.online.membership",
     "repro_torch.online.updater", "repro_torch.online.loop", "repro_torch.cascade",
@@ -134,3 +141,16 @@ def test_build_scheduler_without_device_raises_without_cuda(no_cuda):
     assert build_scheduler(engine, semcache=cache, device="cpu").semcache is cache
     with pytest.raises(ValueError, match="runs on cpu"):
         build_scheduler(engine, device="meta")
+
+
+def test_serve_without_device_raises_without_cuda(no_cuda):
+    """The serve entry point, one scheduler or the in-process plane, with
+    the obs flags: no device and no card raise before anything is built."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import main
+
+    for extra in ([], ["--workers", "3", "--online"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["--smoke", "--trace", "drift", "--requests", "4", "--trace-profile",
+                  *extra])
+        assert ops.get_kernel_profiler() is None
