@@ -87,7 +87,21 @@ Phases (any failure raises and exits non-zero before the last line):
      reassigned, ``router_xattn`` on every worker within 1e-5 of the plain
      predictor, the rpc spans validate, and the two runs' rollups and
      traces equal; the wall by part, syncs, merges, updates and lambda.
- 15. attn_long: with the default pool freed, smoke qwen1.5-4b (nonzero QKV
+ 15. socket: with the default pool freed, the serve CLI with the same flags
+     as child processes, once with ``--transport local`` and once with
+     ``--transport socket`` (workers 1 and 2 as OS processes on the card,
+     each building only the pool members it owns and training its router
+     from the seed), both with ``--trace-out``, ``--metrics-out *.prom`` and
+     ``--trace-profile``: the rollup lines equal, three pids, one owner per
+     member, each process's params its members' bytes and its device memory
+     (the allocator's peak it reports, nvidia-smi's sampled from here) within
+     a stated margin of them, every router digest the controller's when
+     ready and at the end, the merged trace valid with every GENERATE client
+     span paired with a server span in another process, the followers'
+     series in the fleet exposition, and both kernels launched in every
+     process (the profiler's kernel spans per pid); the walls, and the
+     socket run's wall by part from the arrival times of its lines.
+ 16. attn_long: with the default pool freed, smoke qwen1.5-4b (nonzero QKV
      biases) and gemma3-27b (window 8) on the card against the CPU at 17 and
      2048 tokens (1e-4); a pool of qwen3-0.6b, qwen1.5-4b and gemma3-27b at
      full width, fp32, gemma3 cut to 8 layers (7 local with window 1024, 1
@@ -101,7 +115,7 @@ Phases (any failure raises and exits non-zero before the last line):
      cache against a full cache across the wrap (1e-4); prefill and decode
      step of qwen1.5-4b and gemma3 at S 1536, 2048 and 4096 with the
      device's busy time and the decode step's bytes bound.
- 16. recurrent: with the attention pool freed, smoke xlstm-1.3b and the
+ 17. recurrent: with the attention pool freed, smoke xlstm-1.3b and the
      jamba hybrid on the card against the CPU at 17 and 600 tokens (xlstm
      pads 600 to 768; 1e-4); a pool of qwen3-0.6b, xlstm-1.3b at published
      size (48 layers, sLSTM:mLSTM 1:7) and jamba-1.5-large at published
@@ -121,7 +135,7 @@ Phases (any failure raises and exits non-zero before the last line):
      bound (weights, the K/V cache, the recurrent state read and written)
      and xlstm's sLSTM and mLSTM shares of prefill (one layer of each timed
      alone, times its count).
- 17. multimodal: with the recurrent pool freed, smoke musicgen-large,
+ 18. multimodal: with the recurrent pool freed, smoke musicgen-large,
      llama4-maverick and llama-3.2-vision (with seeded stub media) on the
      card against the CPU at 17 and 600 tokens (1e-4); then two pools in
      turn, each built by ``build_cut_pool`` (``build_pool``, then the cut
@@ -146,17 +160,19 @@ Phases (any failure raises and exits non-zero before the last line):
      media K/V counted; for llama4 with the experts the tokens chose and
      with all 128, as the decode rule reads them) and llama4's prefill
      capacity drops; device memory after each build and each timing.
- 18. table2: the paper's Table 2 on pool1 (K = 5) with benchmarks/common.py's
+ 19. table2: the paper's Table 2 on pool1 (K = 5) with benchmarks/common.py's
      defaults (4000 queries, 300 epochs): the attention router and the MLP
      trained on the card, KNN (k = 20), SVM, LLM-Blender and the oracle, each
      with AIQ and perf_max over the 25-point lambda grid; the same attention
      quality predictor trained on the CPU from the same initial params must
      agree (losses rtol 1e-3, AIQ 5e-3); ``router_xattn`` on the trained
      params over the 1000 held-out queries (1e-5), timed.
-Each path (serve, moe, trace, lookup, online, cascade, obs, fleet,
+Each path (serve, moe, trace, lookup, online, cascade, obs, fleet, socket,
 attn_long, recurrent, multimodal) runs with every kernel's launch count set to 0 just
 before it and read just after; a kernel of the path that was not launched
-fails the run (the cascade's ``attn-ens`` router scores on the plain
+fails the run (the socket path launches in its child processes, so its counts
+are the profiler's kernel spans in its merged trace, one per launch on the
+card, and this process's own counts must stay 0) (the cascade's ``attn-ens`` router scores on the plain
 predictor, as the reference's does, so only ``pairwise_l2`` runs there).
 The kernel checks on trained params (train, table2) are counted the same
 way. The second-to-last line is a JSON object with the kernels' numbers,
@@ -234,6 +250,19 @@ FLEET_ARGV = ["--trace", "drift", "--online", "--workers", str(FLEET_WORKERS),
               "--crash-at", "0.08", "--rejoin-at", "0.2", "--crash-worker", "1",
               "--budget", "0.01", "--budget-window", "0.5"]
 FLEET_SHARED_GIB = 0.5
+# [socket]: the [fleet] argv through the serve CLI as child processes, once
+# per transport; over sockets workers 1 and 2 are OS processes, each holding
+# only the pool members it owns (round-robin: w0 qwen3-0.6b, w1 granite-moe,
+# w2 granite-3-8b). A process's device memory may exceed its members' params
+# by SOCKET_ALLOC_MARGIN_GIB as its caching allocator reserves it (generate's
+# activations and the router's training state), and by SOCKET_MARGIN_GIB as
+# nvidia-smi counts it (also the CUDA context, about 0.5 GiB); where
+# nvidia-smi lists the run's processes as one row, their sum by N margins.
+SOCKET_MARGIN_GIB = 2.0
+SOCKET_ALLOC_MARGIN_GIB = 1.0
+SOCKET_TIMEOUT_S = 600
+SOCKET_ROLLUP = ("completed ", "per-member counts:", "per-member spend:", "total spend ",
+                 "plane: ", "coordinator: ", "shared budget ")
 # [attn_long]: a pool of the attention members, gemma3-27b at full width cut
 # to one repeat of its 6-layer pattern (5 local, 1 global) plus its 2-local
 # remainder; the default pool is freed first.
@@ -2702,6 +2731,269 @@ def phase_fleet(engine, data, rx, pl2) -> dict:
             "mem_delta_gib": [a["mem_delta"], b["mem_delta"]], "lam": g["lam"]}
 
 
+def _smi_rows() -> list:
+    """[(pid, MiB)] of the processes nvidia-smi lists on the card. In a
+    container whose processes it cannot tell apart it lists one row for
+    each, every row pid 1 (``/process_api``) holding the container's whole
+    use."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, timeout=30).stdout
+    rows = []
+    for row in out.strip().splitlines():
+        parts = [x.strip() for x in row.split(",")]
+        if len(parts) == 2 and parts[1].isdigit():
+            rows.append((parts[0], int(parts[1])))
+    return rows
+
+
+def _smi_used(rows) -> int:
+    """MiB that nvidia-smi's ``rows`` hold together: their sum, or where
+    every row carries one pid (the container's whole use in each), one row."""
+    mibs = [mib for _, mib in rows]
+    if len({pid for pid, _ in rows}) == 1:
+        return max(mibs)
+    return sum(mibs)
+
+
+def _wait_for_card(base, timeout=120.0) -> float:
+    """Wait until nvidia-smi lists no more rows than ``base`` and they hold
+    no more than ``base``'s memory + 256 MiB (a finished child's memory can
+    outlive its exit for a moment); returns the wait."""
+    def busy():
+        rows = _smi_rows()
+        return len(rows) > len(base) or _smi_used(rows) > _smi_used(base or [("", 0)]) + 256
+
+    t0 = time.perf_counter()
+    while busy() and time.perf_counter() - t0 < timeout:
+        time.sleep(0.2)
+    check(not busy(), f"socket: a finished run still holds the card after {timeout:.0f} s")
+    return time.perf_counter() - t0
+
+
+def _serve_child(argv, sample_smi=False) -> dict:
+    """Run the serve CLI as a child process (its own session, so a timeout
+    kills its followers too): each output line with its arrival time, the
+    exit code, the wall, and with ``sample_smi`` nvidia-smi's rows polled
+    every 0.2 s while it runs: the peak MiB of each pid it lists, the peak
+    of the card's use (:func:`_smi_used`, ``total``) and the most rows
+    listed at once (``rows``)."""
+    import signal
+    import threading
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), PYTHONUNBUFFERED="1")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.serve", *argv],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    lines, smi, peak, done = [], {}, {"total": 0, "rows": 0}, threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append((time.perf_counter() - t0, line.rstrip("\n")))
+
+    def sample():
+        while not done.is_set():
+            rows = _smi_rows()
+            for pid, mib in rows:
+                smi[pid] = max(smi.get(pid, 0), mib)
+            if rows:
+                peak["total"] = max(peak["total"], _smi_used(rows))
+                peak["rows"] = max(peak["rows"], len(rows))
+            done.wait(0.2)
+
+    threads = [threading.Thread(target=read, daemon=True)]
+    if sample_smi:
+        threads.append(threading.Thread(target=sample, daemon=True))
+    for t in threads:
+        t.start()
+    try:
+        rc = proc.wait(timeout=SOCKET_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        rc = "timeout"
+    wall = time.perf_counter() - t0
+    done.set()
+    for t in threads:
+        t.join(timeout=60)
+    return {"lines": lines, "rc": rc, "wall": wall, "smi": smi, **peak}
+
+
+def _first(lines, prefix) -> tuple:
+    """(arrival time, text from ``prefix`` on) of the first line holding
+    ``prefix``: the fleet's processes share one stdout, so a line of one
+    can land inside a line of another."""
+    for t, line in lines:
+        if prefix in line:
+            return t, line[line.index(prefix):]
+    raise RuntimeError(f"chip_smoke check failed: no line starting with {prefix!r}")
+
+
+def phase_socket(rx, pl2) -> dict:
+    """The serve CLI with the [fleet] argv as child processes, over
+    ``--transport local`` and ``--transport socket``: equal rollups, three
+    OS processes each holding only the members it owns, equal router
+    digests, every GENERATE hop paired, the followers' metrics federated,
+    and both kernels launched in every process."""
+    from repro_torch import obs
+
+    out_dir = os.path.join(ROOT, "build", "socket")
+    os.makedirs(out_dir, exist_ok=True)
+    counts = _Launches(rx, pl2)
+    runs = {}
+    base = _smi_rows()                 # this process's own memory
+    base_mib = _smi_used(base) if base else 0
+    log(f"[socket] nvidia-smi before the runs: {base}")
+    for transport in ("local", "socket"):
+        paths = {k: os.path.join(out_dir, f"{transport}.{k}") for k in ("json", "prom")}
+        for path in (*paths.values(), paths["prom"] + ".fleet.prom"):
+            if os.path.exists(path):
+                os.remove(path)
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts.start()
+        run = _serve_child([*FLEET_ARGV, "--transport", transport,
+                            "--trace-out", paths["json"], "--metrics-out", paths["prom"],
+                            "--trace-profile"], sample_smi=True)
+        run["parent_launches"] = counts.take()
+        run["card_wait"] = _wait_for_card(base)
+        for _, line in run["lines"]:
+            log(f"[socket] {transport}| {line}")
+        check(run["rc"] == 0, f"socket: the {transport} run exited {run['rc']}")
+        check(run["parent_launches"] == {"router_xattn": 0, "pairwise_l2": 0},
+              f"socket: the {transport} run launched in this process "
+              f"{run['parent_launches']}")
+        run["doc"] = json.load(open(paths["json"]))
+        run["paths"] = paths
+        runs[transport] = run
+    loc, sock = runs["local"], runs["socket"]
+    rollup = {name: [line for _, line in run["lines"] if line.startswith(SOCKET_ROLLUP)]
+              for name, run in runs.items()}
+    check(len(rollup["local"]) == len(SOCKET_ROLLUP) and rollup["local"] == rollup["socket"],
+          f"socket: rollups differ\n  local  {rollup['local']}\n  socket {rollup['socket']}")
+    lines = sock["lines"]
+    digest = re.compile(r"router v(\d+) digest ([0-9a-f]{16})")
+    _, ctrl = _first(lines, "socket plane: controller")
+    pids = {0: int(re.search(r"controller pid (\d+)", ctrl).group(1))}
+    pids.update({int(w): int(p) for w, p in re.findall(r"w(\d+):pid(\d+)", ctrl)})
+    check(len(set(pids.values())) == FLEET_WORKERS,
+          f"socket: {len(set(pids.values()))} distinct pids {pids}")
+    _, owners = _first(lines, "pool ownership:")
+    owner_of = dict(pair.split("->") for pair in owners.split(": ", 1)[1].split())
+    check(sorted(owner_of) == sorted(POOL) and len(owners.split()) - 2 == len(POOL),
+          f"socket: every member has exactly one owner ({owners})")
+    ready = {0: digest.search(ctrl).groups()}
+    done = {0: digest.search(_first(lines, "socket plane: w0")[1]).groups()}
+    held, peaks, reserved, t_ready = {}, {}, {}, {}
+    gib = re.compile(r"\(([0-9.]+) GiB of params\)")
+    peak = re.compile(r"peak device memory ([0-9.]+) GiB \(reserved ([0-9.]+) GiB\)")
+    held[0] = float(gib.search(ctrl).group(1))
+    peaks[0], reserved[0] = map(float, peak.search(_first(lines, "socket plane: w0")[1]).groups())
+    for wid in range(1, FLEET_WORKERS):
+        t_ready[wid], line = _first(lines, f"[w{wid}] ready")
+        ready[wid] = digest.search(line).groups()
+        held[wid] = float(gib.search(line).group(1))
+        line = _first(lines, f"[w{wid}] done")[1]
+        done[wid] = digest.search(line).groups()
+        peaks[wid], reserved[wid] = map(float, peak.search(line).groups())
+    from repro_torch.configs import get_config
+
+    want = {wid: sum(get_config(n).param_count() * 4 for n, o in owner_of.items()
+                     if o == f"w{wid}") / 2**30 for wid in pids}
+    # Each process's peak is its own caching allocator's (what it reserved
+    # from the card), as it reports it. nvidia-smi lists the run's pids on
+    # some machines; in a container every row may hold the container's
+    # whole use, so it bounds the run's sum, and its row count counts
+    # processes.
+    smi = {pid: mib / 1024 for pid, mib in sock["smi"].items()}
+    smi_of = {w: smi[str(pid)] for w, pid in pids.items() if str(pid) in smi}
+    run_gib = {name: (run["total"] - base_mib) / 1024 for name, run in runs.items()}
+    log(f"[socket] nvidia-smi peak MiB by listed pid: local run {loc['smi']}, socket run "
+        f"{sock['smi']}; beside this process ({base_mib} MiB) the local run held "
+        f"{run_gib['local']:.3f} GiB at its peak, the socket run's {len(pids)} processes "
+        f"{run_gib['socket']:.3f} GiB; rows listed at most {loc['rows']} / {sock['rows']} "
+        f"({len(base)} before); the socket run's pids {pids}; waited "
+        f"{loc['card_wait']:.2f} / {sock['card_wait']:.2f} s for each run's memory to go")
+    for wid in sorted(pids):
+        log(f"[socket] w{wid} pid {pids[wid]}: params held {held[wid]:.4f} GiB "
+            f"(members {want[wid]:.4f}), allocator peak {peaks[wid]:.3f} GiB (reserved "
+            f"{reserved[wid]:.3f})" + (f", nvidia-smi peak {smi_of[wid]:.3f} GiB"
+                                      if wid in smi_of else ""))
+    check(all(v == ready[0] for v in ready.values()),
+          f"socket: router digests when ready {ready}")
+    check(all(v == done[0] for v in done.values()), f"socket: router digests at the end {done}")
+    check(sock["rows"] == len(base) + len(pids),
+          f"socket: nvidia-smi listed at most {sock['rows']} processes, {len(base)} before")
+    check(0 < run_gib["socket"] < sum(held.values()) + len(pids) * SOCKET_MARGIN_GIB,
+          f"socket: the socket run's processes held {run_gib['socket']:.3f} GiB on the card, "
+          f"over their params {sum(held.values()):.3f} + {len(pids)} x {SOCKET_MARGIN_GIB}")
+    for wid in sorted(pids):
+        check(abs(held[wid] - want[wid]) < 0.01,
+              f"socket: w{wid} holds {held[wid]:.4f} GiB of params, its members "
+              f"{want[wid]:.4f}")
+        check(reserved[wid] < held[wid] + SOCKET_ALLOC_MARGIN_GIB,
+              f"socket: w{wid} allocator peak {peaks[wid]:.3f} GiB, reserved "
+              f"{reserved[wid]:.3f}, over {held[wid]:.3f} + {SOCKET_ALLOC_MARGIN_GIB}")
+        check(smi_of.get(wid, 0.0) < held[wid] + SOCKET_MARGIN_GIB,
+              f"socket: w{wid} nvidia-smi peak {smi_of.get(wid)} GiB over {held[wid]:.3f} "
+              f"+ {SOCKET_MARGIN_GIB}")
+    check(max(reserved.values()) < sum(held.values()), "socket: no process held the whole pool")
+    doc = sock["doc"]
+    bad = obs.validate_chrome_trace(doc) + obs.validate_span_tree(doc)
+    check(not bad, f"socket: merged trace validates ({bad[:3]})")
+    check({e["pid"] for e in doc["traceEvents"]} == set(range(FLEET_WORKERS)),
+          "socket: the merged trace holds every worker's pid")
+    gen = [e for e in doc["traceEvents"] if e.get("name") == "rpc"
+           and e["args"]["kind"] == "generate"]
+    servers = {e["args"]["rpc"]: e["pid"] for e in gen if e["args"]["side"] == "server"}
+    clients = [e for e in gen if e["args"]["side"] == "client"]
+    check(clients and all(e["args"]["rpc"] in servers and servers[e["args"]["rpc"]] != e["pid"]
+                          for e in clients),
+          f"socket: {len(clients)} GENERATE client spans, each paired with a server span "
+          f"in another process")
+    fleet_prom = open(sock["paths"]["prom"] + ".fleet.prom").read()
+    check(all(f'worker="{w}"' in fleet_prom for w in range(1, FLEET_WORKERS)),
+          "socket: the fleet exposition holds every follower's series")
+    kernels = {}
+    for name, run in runs.items():
+        per = {}
+        for e in run["doc"]["traceEvents"]:
+            if e.get("cat") == "kernel":
+                key = "router_xattn" if "router_xattn" in e["name"] else "pairwise_l2"
+                per.setdefault(e["pid"], {"router_xattn": 0, "pairwise_l2": 0})[key] += 1
+        kernels[name] = per
+    for wid in range(FLEET_WORKERS):
+        got = kernels["socket"].get(wid, {})
+        check(got.get("router_xattn", 0) > 0 and got.get("pairwise_l2", 0) > 0,
+              f"socket: w{wid} launched {got}")
+    total = {k: sum(v[k] for v in kernels["socket"].values())
+             for k in ("router_xattn", "pairwise_l2")}
+    log(f"[socket] launches from the profiler's kernel spans by pid: local {kernels['local']}, "
+        f"socket {kernels['socket']}")
+    t_build = _first(lines, "device: ")[0]
+    t_plane = _first(lines, "socket plane: controller")[0]
+    t_followers = max(t_ready.values())
+    t_trace = _first(lines, "trace=")[0]
+    t_end = _first(lines, "socket plane: w0")[0]
+    parts = [("controller build", t_build),
+             ("controller set-up to the plane", t_plane - t_build),
+             ("waiting for the followers", max(t_followers - t_plane, 0.0)),
+             ("trace run and fleet drain", t_trace - max(t_plane, t_followers)),
+             ("report", t_end - t_trace), ("save and shutdown", sock["wall"] - t_end)]
+    log(f"[socket] walls: local {loc['wall']:.3f} s, socket {sock['wall']:.3f} s "
+        f"(child process, start to exit)")
+    log("[socket] socket wall by part (line arrival times in this process): " + ", ".join(
+        f"{name} {v:.3f}s ({v / sock['wall']:.4f})" for name, v in parts)
+        + "; followers ready at " + ", ".join(f"w{w} {t:.3f}s" for w, t in sorted(t_ready.items())))
+    t_loc = _first(loc["lines"], "trace=")[0] - _first(loc["lines"], "device: ")[0]
+    log(f"[socket] local: build {_first(loc['lines'], 'device: ')[0]:.3f}s, set-up and "
+        f"trace run {t_loc:.3f}s")
+    return {"launches": total, "by_pid": kernels["socket"], "local_launches": kernels["local"],
+            "wall_s": {"local": loc["wall"], "socket": sock["wall"]}, "held_gib": held,
+            "alloc_peak_gib": peaks, "reserved_gib": reserved, "smi_run_gib": run_gib}
+
+
 def bench_defaults() -> tuple:
     """(queries, epochs): the defaults of REPRO_BENCH_QUERIES and
     REPRO_BENCH_EPOCHS in benchmarks/common.py, read from the file (the
@@ -2946,7 +3238,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     left = torch.cuda.memory_allocated() / 2**30
     check(left < 1.0, f"{left:.2f} GiB still allocated after the default pool was freed")
-    log(f"[attn_long] default pool freed: {left:.2f} GiB allocated")
+    log(f"[socket] default pool freed: {left:.2f} GiB allocated")
+    t0 = time.perf_counter()
+    socket_run = phase_socket(rx, pl2)
+    log(f"[socket] phase wall {time.perf_counter() - t0:.2f}s")
+
     t0 = time.perf_counter()
     attn_long = phase_attn_long(rx, pl2)
     gc.collect()
@@ -2990,6 +3286,7 @@ def main() -> int:
                              "cascade": cascade["launches"]["router_xattn"],
                              "obs": obs_run["launches"]["router_xattn"],
                              "fleet": fleet["launches"]["router_xattn"],
+                             "socket": socket_run["launches"]["router_xattn"],
                              "train": train["launches"], "table2": table2["launches"],
                              "attn_long": attn_long["launches"]["router_xattn"],
                              "recurrent": recurrent["launches"]["router_xattn"],
@@ -3016,6 +3313,7 @@ def main() -> int:
                              "cascade": cascade["launches"]["pairwise_l2"],
                              "obs": obs_run["launches"]["pairwise_l2"],
                              "fleet": fleet["launches"]["pairwise_l2"],
+                             "socket": socket_run["launches"]["pairwise_l2"],
                              "attn_long": attn_long["launches"]["pairwise_l2"],
                              "recurrent": recurrent["launches"]["pairwise_l2"],
                              "multimodal": multimodal["launches"]["pairwise_l2"]},

@@ -8,7 +8,8 @@ through typed messages over a pluggable transport:
     lossless binary codec for the socket wire;
   * :mod:`transport` — :class:`Transport` with
     :class:`LocalTransport` (deterministic in-process loopback,
-    by-reference delivery) and :class:`FaultyTransport`
+    by-reference delivery), :class:`SocketTransport` (length-prefixed
+    TCP between real OS processes), and :class:`FaultyTransport`
     (seeded drop/dup/reorder fault injection for tests);
   * :mod:`worker` — :class:`WorkerNode`: engine replica + scheduler +
     local replay, a transport endpoint with crash/rejoin semantics;
@@ -20,21 +21,28 @@ through typed messages over a pluggable transport:
     remote-process facade for it;
   * :mod:`plane` — :class:`ServingPlane`: the deterministic multi-clock
     event loop, round-robin request assignment, scenario (crash/rejoin)
-    events, and per-worker telemetry rollup.
+    events, and per-worker telemetry rollup;
+  * :mod:`shard` — pool-member ownership across workers and the
+    scheduler-side dispatcher that routes generate legs to the owner;
+  * :mod:`host` — the follower process entry point
+    (``python -m repro_torch.distributed.host``) and the controller-side
+    :class:`RemoteWorkerProxy`.
 
-The port of ``repro.distributed``'s in-process part. ``shard.py``
-(pool ownership across processes), ``host.py`` (the follower process) and
-``SocketTransport`` wait for the socket slice of the port; until then
-``repro_torch.launch.serve --workers N`` runs the plane over
-:class:`LocalTransport`, with every worker's engine sharing one pool.
+The port of ``repro.distributed``, whole. Entry point:
+``python -m repro_torch.launch.serve --workers N --transport
+{local,socket}``. In process (``local``) every worker's engine shares one
+pool; over ``socket`` each OS process builds and holds only the pool
+members it owns.
 """
 from repro_torch.distributed.coordinator import Coordinator, SyncConfig
 from repro_torch.distributed.ledger import LedgerClient, SharedBudgetLedger
 from repro_torch.distributed.messages import Message, decode, encode
 from repro_torch.distributed.plane import PlaneEvent, ServingPlane
+from repro_torch.distributed.shard import PoolDispatcher, owner_of
 from repro_torch.distributed.transport import (
     FaultyTransport,
     LocalTransport,
+    SocketTransport,
     Transport,
     TransportError,
 )
@@ -42,7 +50,7 @@ from repro_torch.distributed.worker import WorkerNode
 
 __all__ = [
     "Coordinator", "FaultyTransport", "LedgerClient", "LocalTransport",
-    "Message", "PlaneEvent", "ServingPlane", "SharedBudgetLedger",
-    "SyncConfig", "Transport", "TransportError", "WorkerNode", "decode",
-    "encode",
+    "Message", "PlaneEvent", "PoolDispatcher", "ServingPlane",
+    "SharedBudgetLedger", "SocketTransport", "SyncConfig", "Transport",
+    "TransportError", "WorkerNode", "decode", "encode", "owner_of",
 ]

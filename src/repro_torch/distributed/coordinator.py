@@ -4,7 +4,9 @@ The port of ``repro.distributed.coordinator``. The leader's update is the
 port's :class:`~repro_torch.online.updater.IncrementalUpdater`, on the
 leader's device; the router it publishes crosses to the other workers by
 reference over :class:`~repro_torch.distributed.transport.LocalTransport`,
-so the fleet holds one copy of its tensors.
+so the fleet holds one copy of its tensors, and as codec bytes over
+:class:`~repro_torch.distributed.transport.SocketTransport`, decoded onto
+each follower's device.
 
 The serve->learn loop of the single-worker adapter has four in-process
 singletons: the replay buffer, the incremental updater, the drift burst,

@@ -1,7 +1,7 @@
 """Shared budget ledger: one $/window budget across N scheduler workers.
 
 The port of ``repro.distributed.ledger`` (pure Python). ``LedgerClient`` is
-the socket-mode follower's facade; it is ported with the module.
+the socket-mode follower's facade (``distributed/host.py``).
 
 With per-worker :class:`~repro_torch.serving.budget.BudgetGovernor` instances,
 "at most $B per window" silently becomes "$N*B per window" — each worker

@@ -25,8 +25,8 @@ Two delivery regimes share the type:
     in-process plane relies on (served-request mutations must land on
     the trace's original objects) and which makes seeded replays
     byte-identical by construction.
-  * a socket transport (the reference's ``SocketTransport``; not yet in
-    the port) frames ``encode(msg)`` bytes over TCP. The codec is a small self-contained
+  * :class:`~repro_torch.distributed.transport.SocketTransport` frames
+    ``encode(msg)`` bytes over TCP. The codec is a small self-contained
     tagged binary format (no pickle): scalars, strings, bytes,
     containers, and ndarrays (dtype + shape + raw C-order buffer —
     lossless, including float NaN/inf), plus adapters for the domain
@@ -47,6 +47,7 @@ v1 decoders reject v2 frames at the version byte.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import struct
 from typing import Any, Dict, Optional
 
@@ -387,6 +388,16 @@ def encode(msg: Message) -> bytes:
         "parent_span": msg.parent_span,
     }, out)
     return b"".join(out)
+
+
+def router_digest(router) -> str:
+    """A short sha256 of the router's codec state (predictor params, model
+    embeddings, cost scaler, centroids, kinds, reward and version): two
+    routers have the same digest when they are bitwise equal, whatever
+    device or process holds them."""
+    out: list = []
+    _enc(router_to_state(router), out)
+    return hashlib.sha256(b"".join(out)).hexdigest()[:16]
 
 
 def decode(buf: bytes, device=None) -> Message:

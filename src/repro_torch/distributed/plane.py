@@ -18,12 +18,12 @@ coordinator's :class:`~repro_torch.distributed.transport.Transport` —
 :class:`~repro_torch.distributed.transport.LocalTransport` the messages are
 delivered by reference to in-process :class:`WorkerNode` endpoints —
 the event sequence (and therefore every seeded replay) is bit-identical
-to the pre-refactor shared-object plane. In the reference, the same loop
-drives real OS processes over a socket transport, with proxies in the
-``workers`` list that satisfy the reporting surface (``telemetry``,
-``router_version``, ``clock``) by RPC; the port keeps the loop's hooks for
-them (``fleet_drain``, ``observe_step``) and runs in process until that
-transport is ported.
+to the pre-refactor shared-object plane. Over
+:class:`~repro_torch.distributed.transport.SocketTransport` the same loop
+drives real OS processes (see :mod:`repro_torch.distributed.host`); the
+``workers`` list then holds :class:`~repro_torch.distributed.host.
+RemoteWorkerProxy` mirrors that satisfy the reporting surface
+(``telemetry``, ``router_version``, ``clock``) by RPC.
 
 The event loop is deterministic: it always advances the worker with the
 earliest next-action time (ties by worker id), fires sync rounds at fixed

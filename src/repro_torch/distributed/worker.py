@@ -3,9 +3,10 @@
 The port of ``repro.distributed.worker``, with every handler of the
 reference's, including those only a socket-mode follower receives
 (``GENERATE``, ``LEDGER_OP``, ``TELEMETRY_REQ``, ``TRACE_REQ``,
-``METRICS_REQ``, ``HELLO``), which wait for the socket transport. In
+``METRICS_REQ``, ``HELLO``), which ``--transport socket`` drives. In
 process, an "engine replica" is a :class:`RoutedEngine` of its own over the
-shared pool and router: the members' params are not copied.
+shared pool and router: the members' params are not copied; in a
+follower process it holds only the members that process owns.
 
 A worker is the unit of replication in the multi-worker plane: it owns its
 own :class:`~repro_torch.serving.engine.RoutedEngine` instance (so router swaps

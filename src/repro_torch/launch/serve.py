@@ -20,6 +20,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --trace drift --online --workers 3 --crash-at 0.08 --rejoin-at 0.2 \
         --budget 0.01
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --trace drift --online --workers 3 --transport socket
 
 builds the pool members at their published widths and depths on the CUDA
 card (``--smoke`` builds the reduced configs instead, ``--device cpu``
@@ -28,15 +30,19 @@ does, the router is trained on the same device: synthetic RouterBench
 traffic mapped onto the pool, k-means model embeddings of the training
 split, then the quality (``--quality-kind``, default ``attn``) and ``attn``
 cost predictors for ``--epochs`` epochs, keeping the best-validation
-params. ``--router`` loads an npz checkpoint saved by either package
-instead and skips training; ``--save-router`` writes the trained one.
+params. ``--router`` (or the reference's name, ``--restore-router``) loads
+an npz checkpoint saved by either package instead and skips training;
+``--save-router`` writes the trained one.
 
 Without ``--trace`` it serves one batch of seeded requests through
 :meth:`RoutedEngine.serve`, ``MAX_NEW`` tokens each, at willingness-to-pay
 lambda = 1. With ``--trace`` it replays an open-loop trace over the
 held-out split of the synthetic RouterBench corpus through the admission
-queue and the micro-batching scheduler, on the deterministic service-time
-model, and prints the telemetry report. ``--semcache`` puts the semantic
+queue and the micro-batching scheduler (``--max-batch``, ``--max-wait``,
+``--score-batch``, ``--queue-capacity``), on the deterministic service-time
+model (``--wall-time``: on measured wall time instead), with a deadline of
+``--deadline`` virtual seconds after arrival when given, and prints the
+telemetry report. ``--semcache`` puts the semantic
 answer cache in front as rung 0, with a radius calibrated on the training
 split (unless ``--cache-radius``) and a cache-owned drift detector fitted
 on the training split against the router's k-means centroids. A trained
@@ -78,8 +84,21 @@ cache and cascade, one shared budget ledger with ``--budget``, and with
 ``--online`` follower adapters whose replay the coordinator merges onto
 the leader every ``--sync-every`` virtual seconds before it broadcasts
 the updated router. ``--crash-at`` / ``--rejoin-at`` / ``--crash-worker``
-inject a crash and rejoin. ``--transport socket`` (workers as OS
-processes) is not ported yet and raises.
+inject a crash and rejoin.
+
+``--transport socket`` runs workers 1..N-1 as OS processes
+(``python -m repro_torch.distributed.host``) that speak length-prefixed TCP
+to this process, the controller, which is worker 0 and the leader. Each
+process re-parses this argv, builds only the pool members it owns
+(round-robin, :func:`~repro_torch.distributed.shard.owner_of`) and trains
+its own router from ``--seed`` (bitwise the controller's: the ``ready``
+lines print each router's digest); a generate leg for a member another
+process owns hops there as a ``GENERATE`` message, and budget ops reach the
+controller's ledger as ``LEDGER_OP``. At the end the controller absorbs
+the followers' traces (``TRACE_REQ``) and metrics (``METRICS_REQ``; with
+``--metrics-out`` a ``.fleet.prom`` beside it) and shuts them down. The
+reference's ``--pallas`` has no counterpart: every CUDA tensor launches the
+kernel.
 
 Every random path derives from ``--seed``: pool init from torch
 generators on the serving device, the predictors' init likewise, the
@@ -91,8 +110,11 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
+import subprocess
+import sys
 import time
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Collection, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -111,6 +133,7 @@ from repro_torch.data.routerbench import generate
 from repro_torch.distributed import (
     Coordinator, PlaneEvent, ServingPlane, SharedBudgetLedger, SyncConfig, WorkerNode,
 )
+from repro_torch.distributed.shard import owned_members
 from repro_torch.kernels import ops as kops
 from repro_torch.models import lm as lm_mod
 from repro_torch.online import (
@@ -155,7 +178,8 @@ def stub_media(cfg, gen: torch.Generator) -> Optional[torch.Tensor]:
 
 def build_pool(names: Sequence[str], seed: int = 0,
                device: Optional[DeviceLike] = None,
-               smoke: bool = False) -> List[PoolMember]:
+               smoke: bool = False,
+               owned: Optional[Collection[int]] = None) -> List[PoolMember]:
     """Pool members with seeded params made directly on ``device``.
 
     ``smoke=False`` builds the published configs. Cost rates always come
@@ -165,16 +189,25 @@ def build_pool(names: Sequence[str], seed: int = 0,
     seed, which every request it serves reads: the reference's serving
     path passes no media and cannot serve such a member (ROADMAP.md
     Queue 3).
+
+    ``owned`` (member indices) builds only those members' params and
+    media, as a socket-mode worker does for its shard: each member has a
+    generator of its own (``seed + i``), so an owned member gets the bits
+    of the full build. The others keep their config and cost rate (all
+    that router training and scoring read) with ``params=None``.
     """
     device = resolve_device(device)
     members = []
     for i, name in enumerate(names):
         cfg = get_smoke_config(name) if smoke else get_config(name)
-        gen = torch.Generator(device=device).manual_seed(seed + i)
-        params = lm_mod.init_lm(gen, cfg)
+        params = media = None
+        if owned is None or i in owned:
+            gen = torch.Generator(device=device).manual_seed(seed + i)
+            params = lm_mod.init_lm(gen, cfg)
+            media = stub_media(cfg, gen)
         members.append(PoolMember(
             name=name, cfg=cfg, params=params,
-            cost_rate=arch_cost_rate(get_config(name)), media=stub_media(cfg, gen),
+            cost_rate=arch_cost_rate(get_config(name)), media=media,
         ))
     return members
 
@@ -196,12 +229,14 @@ def init_router(n_members: int, seed: int = 0,
 def build_engine(names: Sequence[str], router_path: Optional[str] = None,
                  seed: int = 0, device: Optional[DeviceLike] = None,
                  smoke: bool = False, epochs: int = 120, n_traffic: int = 1200,
-                 quality_kind: str = "attn") -> RoutedEngine:
+                 quality_kind: str = "attn",
+                 owned: Optional[Collection[int]] = None) -> RoutedEngine:
     """Pool + trained router + engine on one device (the CUDA card by
     default), as the reference's ``build_routed_engine``:
-    :func:`build_pool`, then :func:`train_engine` on it."""
+    :func:`build_pool` (only the ``owned`` members' params, when given),
+    then :func:`train_engine` on it."""
     device = resolve_device(device)
-    pool = build_pool(names, seed=seed, device=device, smoke=smoke)
+    pool = build_pool(names, seed=seed, device=device, smoke=smoke, owned=owned)
     return train_engine(pool, router_path=router_path, seed=seed, device=device,
                         epochs=epochs, n_traffic=n_traffic, quality_kind=quality_kind)
 
@@ -367,7 +402,7 @@ def make_adapter(engine: RoutedEngine, truth: Callable, train_emb: np.ndarray, *
 
 def build_scheduler(engine: RoutedEngine, *, score_batch: int = 64,
                     max_batch: int = 8, max_wait_s: float = 0.05,
-                    queue_capacity: int = 512,
+                    queue_capacity: int = 512, wall_time: bool = False,
                     semcache: Optional[SemanticCache] = None,
                     governor: Optional[BudgetGovernor] = None,
                     adapter: Optional[OnlineAdapter] = None,
@@ -376,8 +411,9 @@ def build_scheduler(engine: RoutedEngine, *, score_batch: int = 64,
                     clock: Optional[SimClock] = None,
                     device: Optional[DeviceLike] = None) -> MicroBatchScheduler:
     """The streaming scheduler over ``engine`` on the deterministic
-    service-time model, with the obs hooks (``tracer``: a recorder's
-    worker-scoped view, ``slo``: an SLO tracker, ``flusher``: an
+    service-time model (``wall_time``: on measured wall time instead, as
+    the reference's ``--wall-time``), with the obs hooks (``tracer``: a
+    recorder's worker-scoped view, ``slo``: an SLO tracker, ``flusher``: an
     :class:`ObsFlusher`) when given. The engine, the cache and the drift
     detectors must all run on ``device`` (the CUDA card unless the caller
     names another)."""
@@ -395,7 +431,8 @@ def build_scheduler(engine: RoutedEngine, *, score_batch: int = 64,
     return MicroBatchScheduler(
         engine, SchedulerConfig(score_batch=score_batch, max_batch=max_batch,
                                 max_wait_s=max_wait_s, queue_capacity=queue_capacity),
-        governor=governor, clock=clock, service_time=default_service_model(),
+        governor=governor, clock=clock,
+        service_time=None if wall_time else default_service_model(),
         adapter=adapter, cascade=cascade, semcache=semcache,
         tracer=tracer, slo=slo, flusher=flusher)
 
@@ -521,39 +558,74 @@ def _print_budget(governor, args, now: float, prefix: str = "budget",
           f"tightened x{int(g['tightened'])} relaxed x{int(g['relaxed'])}{extra}")
 
 
-def run_trace_mode(engine: RoutedEngine, args) -> dict:
-    """Replay ``args.trace`` over the held-out split through the scheduler
-    (with the semantic cache, the online adapter, the cascade, the budget
-    governor and the obs stack as ``args`` asks), on one scheduler or, with
-    ``--workers N``, on the in-process serving plane; print the report."""
+def trace_corpus(engine: RoutedEngine, args):
+    """(data, train indices, held-out indices, truth) of a trace run: the
+    synthetic RouterBench corpus mapped onto the pool and split from
+    ``--seed``; the router given k-means centroids of the training split
+    if it has none; the truth lookup with ``--online`` or ``--cascade``
+    (else None). Every process of a socket run derives the same."""
     data, _, _ = synthetic_pool_traffic(engine.pool, seed=args.seed)
     tr, _, te = data.split(seed=args.seed)
     fit_router_centroids(engine.router, data.emb[tr], seed=args.seed,
                          device=engine.device)
     truth = quality_truth(engine.pool, data) if (args.online or args.cascade) else None
+    return data, tr, te, truth
+
+
+def cache_radius(args, train_emb: np.ndarray, device) -> Optional[float]:
+    """``--cache-radius``, or with ``--semcache`` and none given, the radius
+    calibrated on the training split; printed when the cache is on."""
+    radius = args.cache_radius
+    if args.semcache:
+        if radius is None:
+            radius = calibrate_radius(train_emb, device=device)
+        print(f"semcache radius {radius:.4f}"
+              + (" (training-split NN-distance quantile)"
+                 if args.cache_radius is None else ""))
+    return radius
+
+
+def make_serve_trace(args, data, te: np.ndarray, vocab: int) -> list:
+    """The run's trace, as the reference's ``main`` makes it: ``--trace``
+    kind, ``--requests`` at ``--rate`` from ``--seed``, prompts of up to 48
+    tokens below ``vocab``, ``--max-new`` tokens (4 unless given) and a
+    deadline ``--deadline`` virtual seconds after arrival (none unless
+    given), its texts from the held-out split ``te`` of ``data``; with
+    ``--slo-class K`` the requests get classes 0..K-1 round-robin in
+    arrival order (followers get them with the requests)."""
+    trace = make_trace(
+        TraceConfig(kind=args.trace, n_requests=args.requests, rate=args.rate,
+                    seed=args.seed, max_new=args.max_new or 4,
+                    deadline_s=args.deadline, prompt_len_max=48, vocab=vocab),
+        texts=[data.texts[i] for i in te],
+        benchmarks=[data.benchmark[i] for i in te])
+    if args.slo_class > 0:
+        for i, r in enumerate(trace):
+            r.slo_class = i % args.slo_class
+    return trace
+
+
+def run_trace_mode(engine: RoutedEngine, args, fleet: Optional["FollowerFleet"] = None
+                   ) -> dict:
+    """Replay ``args.trace`` over the held-out split through the scheduler
+    (with the semantic cache, the online adapter, the cascade, the budget
+    governor and the obs stack as ``args`` asks), on one scheduler or, with
+    ``--workers N``, on the serving plane (in process, or over ``fleet``'s
+    follower processes with ``--transport socket``); print the report and
+    return the run's summary."""
+    data, tr, te, truth = trace_corpus(engine, args)
     obs = setup_obs(args)
     mserver = None
     try:
-        radius = args.cache_radius
-        if args.semcache:
-            if radius is None:
-                radius = calibrate_radius(data.emb[tr], device=engine.device)
-            print(f"semcache radius {radius:.4f}"
-                  + (" (training-split NN-distance quantile)"
-                     if args.cache_radius is None else ""))
-        trace = make_trace(
-            TraceConfig(kind=args.trace, n_requests=args.requests, rate=args.rate,
-                        seed=args.seed, max_new=args.max_new or 4, prompt_len_max=48,
-                        vocab=min(m.cfg.vocab_size for m in engine.pool)),
-            texts=[data.texts[i] for i in te],
-            benchmarks=[data.benchmark[i] for i in te])
-        if args.slo_class > 0:
-            # Deterministic class assignment, in arrival order.
-            for i, r in enumerate(trace):
-                r.slo_class = i % args.slo_class
+        radius = cache_radius(args, data.emb[tr], engine.device)
+        trace = make_serve_trace(args, data, te,
+                                 vocab=min(m.cfg.vocab_size for m in engine.pool))
         if args.metrics_port is not None:
             mserver = MetricsServer(obs[1], port=args.metrics_port)
             print(f"metrics endpoint: http://127.0.0.1:{mserver.start()}/metrics")
+        if fleet is not None:
+            return _run_plane_socket(engine, args, data.emb[tr], truth, radius, trace,
+                                     obs, fleet, mserver=mserver)
         run = _run_plane if args.workers > 1 else _run_solo
         return run(engine, args, data.emb[tr], truth, radius, trace, obs)
     finally:
@@ -588,7 +660,9 @@ def _run_solo(engine, args, train_emb, truth, radius, trace, obs) -> dict:
                               drift=drift, device=engine.device)
     slo = make_slo(args, tracer=recorder)
     sched = build_scheduler(engine, score_batch=args.score_batch,
-                            max_batch=args.max_batch, semcache=cache,
+                            max_batch=args.max_batch, max_wait_s=args.max_wait,
+                            queue_capacity=args.queue_capacity,
+                            wall_time=args.wall_time, semcache=cache,
                             governor=governor, adapter=adapter, cascade=cascade,
                             tracer=recorder.scoped(0) if recorder is not None else None,
                             slo=slo, flusher=flusher, device=engine.device)
@@ -621,12 +695,16 @@ def _run_solo(engine, args, train_emb, truth, radius, trace, obs) -> dict:
 
 def build_plane_worker(engine: RoutedEngine, args, wid: int, *, governor, drift_proto,
                        truth, train_emb, radius, recorder, slo) -> WorkerNode:
-    """One in-process plane worker, as the reference's ``build_plane_worker``.
+    """One plane worker, as the reference's ``build_plane_worker``,
+    identical whichever process builds it.
 
     Its :class:`RoutedEngine` shares ``engine``'s router and pool by
     reference (its own cached pool projections, no copy of any member's
-    params); its adapter is a follower (``defer_updates=True``) seeded
-    ``seed + 101 * wid + 1`` with a deep copy of the fitted ``drift_proto``;
+    params); in a socket run ``governor`` is a follower's
+    :class:`~repro_torch.distributed.ledger.LedgerClient` and ``recorder``
+    the follower's own. Its adapter is a follower (``defer_updates=True``)
+    seeded ``seed + 101 * wid + 1`` with a deep copy of the fitted
+    ``drift_proto``;
     it has its own cascade and semantic cache, and the shared ``governor``
     (the ledger), ``recorder`` (through its worker-scoped view) and ``slo``.
     """
@@ -657,7 +735,9 @@ def build_plane_worker(engine: RoutedEngine, args, wid: int, *, governor, drift_
         cache = make_semcache(train_emb, radius=radius, cap=args.cache_cap,
                               drift=drift, device=weng.device)
     sched = build_scheduler(weng, score_batch=args.score_batch,
-                            max_batch=args.max_batch, semcache=cache,
+                            max_batch=args.max_batch, max_wait_s=args.max_wait,
+                            queue_capacity=args.queue_capacity,
+                            wall_time=args.wall_time, semcache=cache,
                             governor=governor, adapter=adapter, cascade=cascade,
                             tracer=recorder.scoped(wid) if recorder is not None else None,
                             slo=slo, clock=SimClock(), device=weng.device)
@@ -665,20 +745,37 @@ def build_plane_worker(engine: RoutedEngine, args, wid: int, *, governor, drift_
     return WorkerNode(wid, weng, sched, adapter)
 
 
+def plane_drift_proto(engine: RoutedEngine, args, train_emb: np.ndarray):
+    """With ``--online``, the plane workers' drift-detector prototype: fitted
+    on ``train_emb`` against the router's centroids with a window of
+    ``max(16, 48 // N)``, as each worker watches its 1/N share of the
+    traffic (None without ``--online``). Each worker takes a deep copy."""
+    if not args.online:
+        return None
+    return build_drift_proto(train_emb, engine.router.centroids,
+                             window=max(16, 48 // args.workers), device=engine.device)
+
+
+def plane_events(args) -> List[PlaneEvent]:
+    """The crash and rejoin of ``--crash-worker`` the flags ask for."""
+    events = []
+    if args.crash_at is not None:
+        events.append(PlaneEvent(args.crash_at, "crash", args.crash_worker))
+        if args.rejoin_at is not None:
+            events.append(PlaneEvent(args.rejoin_at, "rejoin", args.crash_worker))
+    return events
+
+
 def build_plane(engine: RoutedEngine, args, train_emb: np.ndarray, truth, radius, *,
                 recorder=None, slo=None, flusher=None):
     """(plane, ledger) for ``args.workers`` in-process workers over
     LocalTransport, each from :func:`build_plane_worker`; the ledger is the
     shared :class:`SharedBudgetLedger` (None without ``--budget``). With
-    ``--online`` the workers' drift detectors are deep copies of one fitted
-    on ``train_emb`` with a window of ``max(16, 48 // N)``: each watches
-    its 1/N share of the traffic."""
+    ``--online`` the workers' drift detectors are deep copies of
+    :func:`plane_drift_proto`."""
     governor = (SharedBudgetLedger(args.budget, args.budget_window, lam0=args.lam)
                 if args.budget > 0 else None)
-    drift_proto = (build_drift_proto(train_emb, engine.router.centroids,
-                                     window=max(16, 48 // args.workers),
-                                     device=engine.device)
-                   if args.online else None)
+    drift_proto = plane_drift_proto(engine, args, train_emb)
     workers = [build_plane_worker(engine, args, wid, governor=governor,
                                   drift_proto=drift_proto, truth=truth,
                                   train_emb=train_emb, radius=radius,
@@ -687,13 +784,22 @@ def build_plane(engine: RoutedEngine, args, train_emb: np.ndarray, truth, radius
     coord = Coordinator(workers, SyncConfig(
         sync_every_s=args.sync_every, seed=args.seed,
         update=OnlineUpdateConfig(update_every=args.online_update_every)))
-    events = []
-    if args.crash_at is not None:
-        events.append(PlaneEvent(args.crash_at, "crash", args.crash_worker))
-        if args.rejoin_at is not None:
-            events.append(PlaneEvent(args.rejoin_at, "rejoin", args.crash_worker))
-    plane = ServingPlane(workers, coord, events=events, tracer=recorder, flusher=flusher)
+    plane = ServingPlane(workers, coord, events=plane_events(args), tracer=recorder,
+                         flusher=flusher)
     return plane, governor
+
+
+def _register_plane_metrics(registry, plane, slo, flusher) -> None:
+    """The plane's, the fleet SLO's and the flusher's series on ``registry``
+    (a run without one registers nothing)."""
+    if registry is None:
+        return
+    register_plane_metrics(registry, plane)
+    if slo is not None:
+        register_slo_metrics(registry, slo,
+                             lambda: max(w.clock.now for w in plane.workers.values()))
+    if flusher is not None:
+        register_stream_metrics(registry, flusher)
 
 
 def _run_plane(engine, args, train_emb, truth, radius, trace, obs) -> dict:
@@ -704,13 +810,7 @@ def _run_plane(engine, args, train_emb, truth, radius, trace, obs) -> dict:
     plane, governor = build_plane(engine, args, train_emb, truth, radius,
                                   recorder=recorder, slo=slo, flusher=flusher)
     workers = list(plane.workers.values())
-    if registry is not None:
-        register_plane_metrics(registry, plane)
-        if slo is not None:
-            register_slo_metrics(registry, slo,
-                                 lambda: max(w.clock.now for w in plane.workers.values()))
-        if flusher is not None:
-            register_stream_metrics(registry, flusher)
+    _register_plane_metrics(registry, plane, slo, flusher)
     summary = plane.run_trace(trace)
     print(f"trace={args.trace} requests={args.requests} seed={args.seed} "
           f"workers={args.workers}")
@@ -731,14 +831,219 @@ def _run_plane(engine, args, train_emb, truth, radius, trace, obs) -> dict:
     return summary
 
 
+def peak_memory_note(device) -> str:
+    """``, peak device memory X GiB (reserved Y GiB)``: the caching
+    allocator's peaks on a CUDA ``device`` (allocated, and held from the
+    card), for a socket run's reports; "" on the CPU."""
+    if torch.device(device).type != "cuda":
+        return ""
+    return (f", peak device memory {torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB "
+            f"(reserved {torch.cuda.max_memory_reserved(device) / 2**30:.3f} GiB)")
+
+
+def follower_env() -> dict:
+    """The environment a follower process starts with: this one's, with
+    ``PYTHONPATH`` led by the directory this package was imported from
+    (the controller may have been started by path, with no PYTHONPATH).
+    ``__path__``, not ``__file__``: a src-layout package may be imported
+    as a namespace package, whose ``__file__`` is None."""
+    import repro_torch
+
+    env = dict(os.environ)
+    src_root = os.path.dirname(os.path.abspath(list(repro_torch.__path__)[0]))
+    env["PYTHONPATH"] = (src_root + os.pathsep + env["PYTHONPATH"]
+                         if env.get("PYTHONPATH") else src_root)
+    return env
+
+
+class FollowerFleet:
+    """Workers 1..N-1 of a socket run as OS processes, connected.
+
+    Opens the controller's listening socket (a :class:`SocketTransport`
+    for worker 0 on ``device``), starts ``python -m
+    repro_torch.distributed.host`` for each follower with ``raw_argv`` (by
+    exec: no follower inherits this process's CUDA context) and accepts
+    their HELLOs on a thread of its own, so this process builds its shard
+    while the followers start, dial back and build theirs. :meth:`hellos`
+    waits for the accepts (120 s at most). :meth:`close` shuts the
+    transport and waits for every follower, killing one that has not
+    exited within 60 s.
+    """
+
+    def __init__(self, args, raw_argv: Sequence[str], device):
+        from concurrent.futures import ThreadPoolExecutor
+
+        from repro_torch.distributed.transport import SocketTransport
+
+        # Long connection timeout: frames wait in TCP buffers while the
+        # followers build and train.
+        self.transport = SocketTransport(0, timeout=600.0, device=device)
+        self.port = self.transport.listen()
+        env = follower_env()
+        self.procs = [
+            subprocess.Popen([sys.executable, "-m", "repro_torch.distributed.host",
+                              "--wid", str(wid), "--port", str(self.port),
+                              "--serve-argv", json.dumps(list(raw_argv))], env=env)
+            for wid in range(1, args.workers)]
+        self._accepting = ThreadPoolExecutor(max_workers=1)
+        self._hellos = self._accepting.submit(self.transport.accept, args.workers - 1,
+                                              timeout=120.0)
+
+    def hellos(self) -> dict:
+        """wid -> HELLO payload of every follower, once all have dialled
+        back; raises the accept's ``TransportError`` if one did not."""
+        return self._hellos.result()
+
+    def close(self) -> None:
+        self._accepting.shutdown(wait=True)
+        self.transport.close()
+        for proc in self.procs:
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+
+def _run_plane_socket(engine, args, train_emb, truth, radius, trace, obs,
+                      fleet: FollowerFleet, mserver=None) -> dict:
+    """Workers 1..N-1 as OS processes over :class:`SocketTransport`, as the
+    reference's ``_run_plane_socket``.
+
+    This process is worker 0, the controller and (by lowest-id election)
+    the leader: the coordinator's updater reads the leader's engine
+    directly, so co-locating leader and controller runs leader updates
+    without shipping optimizer state over the wire. Workers 1..N-1 are
+    ``fleet``'s processes: each re-parses this argv, builds the pool
+    members it owns, trains its router from ``--seed`` and services
+    protocol messages. ``engine`` holds only worker 0's members. Generate
+    legs for a member the executing worker does not own hop to the owner
+    as ``GENERATE``; follower budget ops reach this process's shared
+    ledger as ``LEDGER_OP``.
+    """
+    from repro_torch.distributed import messages as M
+    from repro_torch.distributed.host import RemoteWorkerProxy, say
+    from repro_torch.distributed.messages import Message, router_digest
+    from repro_torch.distributed.shard import (
+        PoolDispatcher, owner_of, pool_param_bytes, shard_pool,
+    )
+    from repro_torch.distributed.transport import TransportError
+    from repro_torch.obs import merge_prom_texts
+
+    recorder, registry, profiler, flusher = obs
+    slo = make_slo(args, tracer=recorder)
+    governor = (SharedBudgetLedger(args.budget, args.budget_window, lam0=args.lam)
+                if args.budget > 0 else None)
+    transport, port, hellos = fleet.transport, fleet.port, fleet.hellos()
+    w0 = build_plane_worker(engine, args, 0, governor=governor,
+                            drift_proto=plane_drift_proto(engine, args, train_emb),
+                            truth=truth, train_emb=train_emb, radius=radius,
+                            recorder=recorder, slo=slo)
+    w0.ledger = governor        # follower LEDGER_OP messages land here
+    shard_pool(w0.engine.pool, 0, args.workers, device=engine.device)
+    w0.scheduler.dispatcher = PoolDispatcher(0, args.workers, w0.engine, transport)
+    w0.bind(transport)
+    names = [m.name for m in engine.pool]
+    proxies = [RemoteWorkerProxy(wid, transport, member_names=names,
+                                 pid=int(hellos[wid].get("pid", -1)))
+               for wid in range(1, args.workers)]
+    workers = [w0] + proxies
+    pids = {0: os.getpid()}
+    pids.update({p.wid: p.pid for p in proxies})
+    say(f"socket plane: controller pid {pids[0]} port {port}  router "
+        f"v{engine.router.version} digest {router_digest(engine.router)} "
+        f"({pool_param_bytes(engine.pool) / 2**30:.4f} GiB of params)  "
+        + "  ".join(f"w{p.wid}:pid{p.pid}" for p in proxies))
+    say("pool ownership: " + "  ".join(
+        f"{names[mi]}->w{owner_of(mi, args.workers)}" for mi in range(len(names))))
+    coord = Coordinator(workers, SyncConfig(
+        sync_every_s=args.sync_every, seed=args.seed,
+        update=OnlineUpdateConfig(update_every=args.online_update_every)),
+        transport=transport)
+    # Fleet-wide obs drain, called by the plane at sync boundaries and
+    # once more after the run: follower trace batches are absorbed
+    # verbatim (their keys start at wid * 1_000_000), and follower
+    # registries are scraped over METRICS_REQ for the live endpoint.
+    # The RPCs run here, on the plane's loop, never on the HTTP thread.
+    fleet_prom = {}
+
+    def fleet_drain(now, force=False):
+        for p in proxies:
+            try:
+                if recorder is not None:
+                    rep = transport.request(Message(
+                        kind=M.TRACE_REQ, dst=p.wid, payload={"force": bool(force)}))
+                    recorder.absorb([tuple(e) for e in rep.payload["events"]])
+                if registry is not None:
+                    rep = transport.request(Message(kind=M.METRICS_REQ, dst=p.wid))
+                    text = rep.payload.get("prom", "")
+                    if text:
+                        fleet_prom[p.wid] = text
+                        if mserver is not None:
+                            mserver.update_fleet(p.wid, text)
+            except TransportError:
+                continue
+
+    plane = ServingPlane(workers, coord, events=plane_events(args), tracer=recorder,
+                         flusher=flusher,
+                         fleet_drain=(fleet_drain if recorder is not None
+                                      or registry is not None else None))
+    _register_plane_metrics(registry, plane, slo, flusher)
+    summary = plane.run_trace(trace)
+    summary["transport"] = "socket"
+    summary["pids"] = pids
+    summary["pool_owner"] = {names[mi]: owner_of(mi, args.workers)
+                             for mi in range(len(names))}
+    # Whatever the sync-boundary drains have not collected (open trees,
+    # spans after FINALIZE, the last metrics) comes in now.
+    if recorder is not None or registry is not None:
+        fleet_drain(None, force=True)
+    print(f"trace={args.trace} requests={args.requests} seed={args.seed} "
+          f"workers={args.workers} transport=socket")
+    print(plane.report(summary.get("duration_s")))
+    # Only w0's serving components live here; each follower prints its
+    # own cascade, cache and adapter lines when it shuts down.
+    if args.cascade:
+        print(f"w0 {w0.scheduler.cascade.report()}")
+    if args.semcache:
+        _print_cache(w0.scheduler.semcache, prefix="w0 ")
+    if args.online:
+        print(f"w0 {w0.adapter.report()}")
+    t_end = max(w.clock.now for w in workers)
+    if governor is not None:
+        _print_budget(governor, args, t_end, prefix="shared budget",
+                      extra=f" throttled x{governor.throttled}")
+    print_slo(slo, t_end)
+    disp = w0.scheduler.dispatcher
+    say(f"socket plane: w0 router v{w0.router_version} digest "
+        f"{router_digest(w0.engine.router)}, generate local/remote "
+        f"{disp.stats['local']}/{disp.stats['remote']}{peak_memory_note(engine.device)}")
+    save_obs(args, recorder, registry, profiler, flusher, now=t_end)
+    if args.metrics_out and registry is not None and fleet_prom:
+        fleet_path = args.metrics_out + ".fleet.prom"
+        own = registry.prometheus(deterministic=not args.trace_profile)
+        with open(fleet_path, "w") as fh:
+            fh.write(merge_prom_texts([own] + [fleet_prom[w] for w in sorted(fleet_prom)]))
+        print(f"fleet metrics exposition written to {fleet_path} "
+              f"({1 + len(fleet_prom)} registries)")
+    for p in proxies:
+        try:
+            transport.send(Message(kind=M.SHUTDOWN, dst=p.wid))
+        except TransportError:
+            pass
+    return summary
+
+
 def make_parser() -> argparse.ArgumentParser:
     """The serve argv schema."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pool", default=DEFAULT_POOL)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--router", default=None,
-                    help="npz router checkpoint to load instead of training")
+    ap.add_argument("--router", "--restore-router", dest="router", default=None,
+                    metavar="PATH",
+                    help="npz router checkpoint to load instead of training "
+                         "(--restore-router is the reference's name)")
     ap.add_argument("--epochs", type=int, default=80,
                     help="router training epochs")
     ap.add_argument("--quality-kind", default="attn", choices=sorted(PREDICTORS),
@@ -755,7 +1060,17 @@ def make_parser() -> argparse.ArgumentParser:
                     help=f"new tokens per request (default 4 with --trace, "
                          f"{MAX_NEW} for the one batch)")
     ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--max-wait", type=float, default=0.05,
+                    help="virtual seconds a partial micro-batch waits")
     ap.add_argument("--score-batch", type=int, default=64)
+    ap.add_argument("--queue-capacity", type=int, default=512,
+                    help="admission queue capacity (arrivals past it are "
+                         "rejected)")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="per-request deadline, virtual seconds after arrival")
+    ap.add_argument("--wall-time", action="store_true",
+                    help="advance the virtual clock by measured wall time "
+                         "instead of the deterministic service model")
     ap.add_argument("--semcache", action="store_true",
                     help="semantic answer cache as rung 0 (with --trace)")
     ap.add_argument("--cache-radius", type=float, default=None,
@@ -795,10 +1110,14 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cascade-min-headroom", type=float, default=0.0,
                     help="cascade: budget headroom below which no leg escalates")
     ap.add_argument("--workers", type=int, default=1,
-                    help="N > 1 serves the trace on the in-process plane: N "
-                         "workers sharing the pool, leader/follower sync")
+                    help="N > 1 serves the trace on the serving plane: N "
+                         "workers, leader/follower sync")
     ap.add_argument("--transport", default="local", choices=["local", "socket"],
-                    help="plane message transport (only local is ported)")
+                    help="plane message transport: local = in-process, the "
+                         "workers sharing one pool (byte-identical seeded "
+                         "replays); socket = workers 1..N-1 as OS processes "
+                         "over length-prefixed TCP, each holding only the pool "
+                         "members it owns")
     ap.add_argument("--sync-every", type=float, default=0.05,
                     help="virtual seconds between replay-merge/broadcast rounds")
     ap.add_argument("--crash-at", type=float, default=None,
@@ -852,14 +1171,10 @@ def make_parser() -> argparse.ArgumentParser:
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     """The serve flags, checked: what needs ``--trace``, the crash/rejoin
-    order, and the socket transport's refusal (``ValueError``)."""
+    order, and the reference's two socket-transport errors (``--workers``
+    below 2, a crash of the controller)."""
     ap = make_parser()
     args = ap.parse_args(argv)
-    if args.transport == "socket":
-        raise ValueError(
-            "--transport socket is not ported yet: workers as OS processes "
-            "(SocketTransport, distributed/host.py, distributed/shard.py) come "
-            "with the socket slice of the port; use --transport local")
     trace_only = ["semcache", "online", "cascade", "trace_out", "metrics_out",
                   "metrics_port", "trace_profile", "scrape_every", "obs_dir",
                   "trace_sample", "trace_cap", "crash_at"]
@@ -872,26 +1187,46 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
             and args.rejoin_at <= args.crash_at):
         ap.error(f"--rejoin-at ({args.rejoin_at}) must be after "
                  f"--crash-at ({args.crash_at})")
+    if args.transport == "socket":
+        if args.workers < 2:
+            ap.error("--transport socket needs --workers >= 2")
+        if args.crash_at is not None and args.crash_worker == 0:
+            ap.error("--transport socket pins the controller (and leader) "
+                     "to worker 0; crash a follower instead")
     return args
 
 
-def main(argv: Optional[Sequence[str]] = None) -> int:
-    args = parse_args(argv)
+def run_cli(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
+    """What ``main`` does; returns the trace run's summary (None for the
+    one batch). With ``--transport socket`` this process is the controller:
+    it starts the followers first (:class:`FollowerFleet`), so that they
+    build while it builds, and builds only worker 0's pool members."""
+    # Socket mode forwards the raw argv to the followers, which re-parse it.
+    raw_argv = list(sys.argv[1:] if argv is None else argv)
+    args = parse_args(raw_argv)
 
     names = args.pool.split(",")
-    t0 = time.perf_counter()
-    engine = build_engine(names, router_path=args.router, seed=args.seed,
-                          device=args.device, smoke=args.smoke, epochs=args.epochs,
-                          quality_kind="attn-ens" if args.cascade else args.quality_kind)
-    engine.lam = args.lam
-    t_build = time.perf_counter() - t0
-    print(f"device: {engine.device}  build: {t_build:.3f}s")
-    if args.save_router is not None:
-        save_router(args.save_router, engine.router, pool_names=names)
-        print(f"router saved to {args.save_router}")
-    if args.trace is not None:
-        run_trace_mode(engine, args)
-        return 0
+    fleet = owned = None
+    if args.transport == "socket":       # parse_args holds it to --workers >= 2
+        fleet = FollowerFleet(args, raw_argv, resolve_device(args.device))
+        owned = owned_members(0, len(names), args.workers)
+    try:
+        t0 = time.perf_counter()
+        engine = build_engine(names, router_path=args.router, seed=args.seed,
+                              device=args.device, smoke=args.smoke, epochs=args.epochs,
+                              quality_kind="attn-ens" if args.cascade else args.quality_kind,
+                              owned=owned)
+        engine.lam = args.lam
+        t_build = time.perf_counter() - t0
+        print(f"device: {engine.device}  build: {t_build:.3f}s")
+        if args.save_router is not None:
+            save_router(args.save_router, engine.router, pool_names=names)
+            print(f"router saved to {args.save_router}")
+        if args.trace is not None:
+            return run_trace_mode(engine, args, fleet)
+    finally:
+        if fleet is not None:
+            fleet.close()
     vocab = min(m.cfg.vocab_size for m in engine.pool)
     texts, prompts = synthetic_requests(args.requests, vocab, seed=args.seed)
     res = engine.serve(texts, prompts, max_new=args.max_new or MAX_NEW)
@@ -900,6 +1235,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         f"{m.name}={int(c)}" for m, c in zip(engine.pool, res["per_member_counts"])))
     print(f"total $: {res['total_cost']:.6g}  serve: {res['latency_s']:.3f}s  "
           f"tokens/s: {n_tok / res['latency_s']:.1f}")
+    return None
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    """The serve CLI; exits 0 (:func:`run_cli` returns the summary)."""
+    run_cli(argv)
     return 0
 
 

@@ -18,7 +18,7 @@ module is the staging layer between completion and training:
     arrived within ``timeout_s`` — they are *dropped*, never trained on a
     guessed score.
 
-The cross-worker replay merge (the fleet layer, not ported yet) consumes
+The cross-worker replay merge (``distributed/coordinator.py``) consumes
 exactly what this layer commits: a worker's replay buffer only ever holds
 real observed scores, so the leader's merged updates are placeholder-free
 by construction.

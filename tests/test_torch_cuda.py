@@ -3,8 +3,8 @@ mixture-of-experts member, sliding-window and long-prompt attention, the
 recurrent members (xlstm-1.3b, the jamba hybrid), the last three
 configs (musicgen-large, llama4-maverick, cross attention with
 llama-3.2-vision and its stub media), the Mamba scan's gradient, the
-online adaptation and cascade layers, and the kernel-dispatch profiler, on
-the card.
+online adaptation and cascade layers, the kernel-dispatch profiler, and the
+socket fleet's two processes, on the card.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (marker ``cuda``) and
 skips without one: a CUDA kernel has no CPU mode. The file imports no JAX,
@@ -799,3 +799,35 @@ def test_kernel_profiler_counts_one_call_per_launch_on_the_card(cuda, monkeypatc
     assert sum(1 for e in rec.events if e[1] == "kernel") == 7
     assert rec.to_json() == TraceRecorder().to_json()   # wall spans stay out
     assert ops.get_kernel_profiler() is None
+
+
+def test_serve_socket_fleet_on_the_card(cuda, tmp_path, capfd):
+    """``--transport socket`` with two OS processes on the card (smoke
+    default pool): the follower trains the controller's router bit for bit
+    (equal digests when ready and at the end), and both kernels launch in
+    the follower, counted from its profiler's kernel spans (pid 1) in the
+    merged trace."""
+    import json
+    import re
+
+    from repro_torch.launch.serve import run_cli
+
+    trace_out = str(tmp_path / "t.json")
+    summary = run_cli(["--smoke", "--device", "cuda", "--trace", "drift", "--online",
+                       "--workers", "2", "--transport", "socket", "--requests", "48",
+                       "--epochs", "2", "--max-new", "2", "--max-wait", "0.01",
+                       "--trace-out", trace_out, "--trace-profile"])
+    out = capfd.readouterr().out.splitlines()
+    digest = re.compile(r"router v(\d+) digest ([0-9a-f]{16})")
+    find = lambda prefix: digest.search(  # noqa: E731
+        next(x[x.index(prefix):] for x in out if prefix in x)).groups()
+    assert find("[w1] ready") == find("socket plane: controller")
+    assert find("[w1] done") == find("socket plane: w0")
+    assert summary["completed"] == 48 and len(set(summary["pids"].values())) == 2
+    kernels = {}
+    for e in json.load(open(trace_out))["traceEvents"]:
+        if e.get("cat") == "kernel":
+            kernels[(e["pid"], e["name"])] = kernels.get((e["pid"], e["name"]), 0) + 1
+    for pid in (0, 1):
+        for name in ("kernel:router_xattn_pool", "kernel:pairwise_l2"):
+            assert kernels.get((pid, name), 0) > 0, (pid, name, kernels)

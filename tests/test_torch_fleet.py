@@ -4,8 +4,8 @@ The reference's transport cases (``tests/test_transport.py``: the codec,
 trace-context frames, RPC telemetry, the local transport, fault injection,
 partitions and leader election) are written out against the port's
 ``repro_torch.distributed`` with stub workers of this file's own; its
-socket-transport and sharded-pool cases wait for the socket slice of the
-port. Then the two packages are held to each other: the codec frames the
+socket-transport and sharded-pool cases are in ``tests/test_torch_socket.py``.
+Then the two packages are held to each other: the codec frames the
 same payloads into the same bytes and each package decodes the other's
 frames; ``tests/test_distributed.py``'s stub-member scenarios (replay-merge
 determinism, stale-version rejection, crash and rejoin, the shared ledger)
@@ -14,7 +14,7 @@ and agree exactly on every request's status, member and cost, on the
 coordinator's stats, the versions and lambda, and within 1e-5 on the
 leader's router params. Last, the serve entry point's in-process plane
 (``--workers 3 --online`` with a crash and a rejoin) replays byte for byte,
-and ``--transport socket`` is refused.
+and ``--transport socket`` refuses what the reference refuses.
 """
 import contextlib
 import dataclasses
@@ -885,9 +885,15 @@ def test_serve_plane_replays_byte_identically(tmp_path):
                if k.startswith("requests_completed_total")) == 48
 
 
-def test_socket_transport_raises():
-    """Workers as OS processes are not ported yet: the serve entry point
-    refuses ``--transport socket`` before it builds anything."""
-    with pytest.raises(ValueError, match="socket slice"):
-        serve.main(["--smoke", "--device", "cpu", "--trace", "drift", "--workers", "2",
-                    "--transport", "socket"])
+def test_socket_transport_raises(capsys):
+    """The serve entry point refuses what the reference's refuses with
+    ``--transport socket``, before it builds anything: one worker, and a
+    crash of worker 0 (the controller and leader)."""
+    for flags, why in ((["--workers", "1"], "needs --workers >= 2"),
+                       (["--workers", "2", "--crash-at", "0.1", "--crash-worker", "0"],
+                        "crash a follower")):
+        with pytest.raises(SystemExit) as exc:
+            serve.main(["--smoke", "--device", "cpu", "--trace", "drift", "--transport",
+                        "socket", *flags])
+        assert exc.value.code == 2
+        assert why in capsys.readouterr().err

@@ -51,7 +51,8 @@ REQUIRED = {
     "repro_torch.distributed", "repro_torch.distributed.messages",
     "repro_torch.distributed.transport", "repro_torch.distributed.ledger",
     "repro_torch.distributed.worker", "repro_torch.distributed.coordinator",
-    "repro_torch.distributed.plane",
+    "repro_torch.distributed.plane", "repro_torch.distributed.shard",
+    "repro_torch.distributed.host",
     "repro_torch.online.drift", "repro_torch.online.replay", "repro_torch.online.staging",
     "repro_torch.online.exploration", "repro_torch.online.membership",
     "repro_torch.online.updater", "repro_torch.online.loop", "repro_torch.cascade",
