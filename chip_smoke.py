@@ -167,13 +167,30 @@ Phases (any failure raises and exits non-zero before the last line):
      quality predictor trained on the CPU from the same initial params must
      agree (losses rtol 1e-3, AIQ 5e-3); ``router_xattn`` on the trained
      params over the 1000 held-out queries (1e-5), timed.
+ 20. lm_train: the LM training path. ``lm_loss`` and its gradient for every
+     param of each of the ten smoke configs (B 2, S 64; MoE at capacity
+     factor 8.0) and of smoke gemma3 at S 2048 (banded flash, window 8),
+     card against CPU from the same seeded params and corpus batch (loss
+     1e-5 relative, each gradient leaf 1e-4 of its largest magnitude);
+     qwen3-0.6b and granite-moe-1b-a400m (``var_len``) at published size
+     through ``train_loop``, B 8, S 1024, 5 steps, seed 0: losses finite
+     and falling, the allocator's peak against params + grads + two
+     moments, the loop's in-place step timed alone (host clock ending in a
+     sync; device busy and idle share from torch.profiler) against its
+     FLOP bound, the MoE aux and its gradient on a router, and qwen3's
+     one-step peak with and without donation; then the train CLI as a
+     child process (``python -m repro_torch.launch.train --arch qwen3-0.6b
+     --smoke --steps 20 --checkpoint build/lm_train/cli.npz``): exit 0, its
+     loss falling, its checkpoint loaded back with ``load_checkpoint``.
 Each path (serve, moe, trace, lookup, online, cascade, obs, fleet, socket,
-attn_long, recurrent, multimodal) runs with every kernel's launch count set to 0 just
+attn_long, recurrent, multimodal, lm_train) runs with every kernel's launch count set to 0 just
 before it and read just after; a kernel of the path that was not launched
 fails the run (the socket path launches in its child processes, so its counts
 are the profiler's kernel spans in its merged trace, one per launch on the
 card, and this process's own counts must stay 0) (the cascade's ``attn-ens`` router scores on the plain
-predictor, as the reference's does, so only ``pairwise_l2`` runs there).
+predictor, as the reference's does, so only ``pairwise_l2`` runs there;
+no kernel of the port is on the LM training path, so both counts must
+stay 0 there).
 The kernel checks on trained params (train, table2) are counted the same
 way. The second-to-last line is a JSON object with the kernels' numbers,
 the last ``{"ok": true, "device": {...}}``. The kernel libraries are built
@@ -3157,6 +3174,282 @@ def phase_table2(rx, ref) -> dict:
                        "shape": {"B": b, "K": 5, "d": 20, "dq": dq}}}
 
 
+# [lm_train]: the LM training path. Smoke configs card vs CPU at (B, S);
+# gemma3 smoke once more at the flash length; two published configs through
+# train_loop at (B, S) for LM_TRAIN_STEPS steps; the train CLI as a child.
+LM_SMOKE_SHAPE = (2, 64)
+LM_FLASH_S = 2048
+LM_TRAIN_RUNS = (("qwen3-0.6b", False), ("granite-moe-1b-a400m", True))
+LM_TRAIN_SHAPE = (8, 1024)
+LM_TRAIN_STEPS = 5
+LM_CLI_ARCH, LM_CLI_STEPS = "qwen3-0.6b", 20
+LM_CLI_TIMEOUT_S = 300
+
+
+def _smoke_train_cfg(name):
+    """A smoke config; MoE at capacity factor 8.0, so no assignment drops."""
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config(name)
+    return dataclasses.replace(cfg, capacity_factor=8.0) if cfg.n_experts else cfg
+
+
+def lm_train_card_vs_cpu(name, b, s) -> tuple:
+    """``lm_loss`` and its gradient for every param, on the card and on the
+    CPU from the same seeded params, corpus batch and stub media: the loss
+    within 1e-5 relative, each gradient leaf within 1e-4 of its largest
+    magnitude. Returns (loss rel err, worst leaf's err / its scale)."""
+    from repro_torch.common.tree import flatten_with_paths, tree_map
+    from repro_torch.data.lm_data import MarkovCorpus
+    from repro_torch.launch.serve import stub_media
+    from repro_torch.models import lm
+    from repro_torch.training.optim import value_and_grad
+
+    cfg = _smoke_train_cfg(name)
+    gen = torch.Generator().manual_seed(5)
+    params_cpu = lm.seed_qkv_biases(lm.init_lm(gen, cfg), cfg)
+    media = stub_media(cfg, gen)
+    tok, lab = (torch.from_numpy(a) for a in
+                next(MarkovCorpus(cfg.vocab_size, seed=0).batches(b, s, seed=1)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = None if media is None else media.expand(b, -1, -1).to(dev)
+        loss, grads = value_and_grad(lambda p: lm.lm_loss(
+            cfg, p, tok.to(dev), lab.to(dev), media=m), tree_map(lambda t: t.to(dev), params_cpu))
+        out[dev] = float(loss), flatten_with_paths(tree_map(lambda t: t.cpu(), grads))
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
+    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    check(np.isfinite(l_gpu) and loss_err <= 1e-5,
+          f"lm_loss {name} B={b} S={s} card {l_gpu} vs CPU {l_cpu}")
+    worst = 0.0
+    for key, want in g_cpu.items():
+        scale = float(want.abs().max())
+        err = float((g_gpu[key] - want).abs().max())
+        check(bool(torch.isfinite(g_gpu[key]).all()) and err <= 1e-4 * scale,
+              f"lm_loss {name} S={s} gradient {key}: card vs CPU max |err| {err:.3g}, "
+              f"largest |grad| {scale:.3g}")
+        worst = max(worst, err / scale if scale else 0.0)
+    log(f"[lm_train] smoke {name} B={b} S={s}: loss {l_gpu:.6f} (rel err {loss_err:.2e}, tol "
+        f"1e-5), {len(g_cpu)} gradient leaves, worst max|err| / max|grad| {worst:.2e} "
+        f"(tol 1e-4)")
+    return loss_err, worst
+
+
+def _matmul_params(cfg, params) -> float:
+    """Parameters a token multiplies by: all but the embedding table (a
+    gather), the MoE experts' weights counted at ``top_k / n_experts``."""
+    from repro_torch.common.tree import flatten_with_paths
+
+    n = 0.0
+    for key, t in flatten_with_paths(params).items():
+        if key == "embedding/table":
+            continue
+        expert = "/ffn/" in key and key.rsplit("/", 1)[-1] in ("w_gate", "w_up", "w_down") \
+            and t.dim() == 3
+        n += t.numel() * (cfg.top_k / cfg.n_experts if expert else 1.0)
+    return n
+
+
+def lm_train_full(name, var_len) -> dict:
+    """A published config through ``train_loop`` on the card: losses, wall,
+    the allocator's peak against params + grads + two moments, then the
+    loop's own step (``make_train_step``, which updates in place) timed
+    alone on the host clock ending in a sync, with the device's busy time
+    under torch.profiler and the FLOP bound of the step."""
+    from repro_torch.common.tree import flatten_with_paths
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import MarkovCorpus
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.training.optim import AdamConfig, adam_init, adam_update, value_and_grad
+
+    cfg = get_config(name)
+    b, s = LM_TRAIN_SHAPE
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    wall, (params, losses) = _synced(lambda: train.train_loop(
+        cfg, steps=LM_TRAIN_STEPS, batch=b, seq=s, seed=0, log_every=1, var_len=var_len,
+        device="cuda"))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    n = sum(t.numel() for t in flatten_with_paths(params).values())
+    state_gib = 16 * n / 2**30
+    check(all(np.isfinite(losses)), f"{name} losses finite: {losses}")
+    check(losses[-1] < losses[0], f"{name} loss fell over {LM_TRAIN_STEPS} steps: {losses}")
+    log(f"[lm_train] {name} ({cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size} padded to {cfg.padded_vocab}; {n / 1e9:.4f}B params) train_loop "
+        f"B={b} S={s}{' var_len' if var_len else ''}, {LM_TRAIN_STEPS} steps, seed 0: losses "
+        + " ".join(f"{x:.4f}" for x in losses) + f"; {wall:.2f} s wall (params init, the "
+        f"host corpus and the first step's set-up included)")
+    log(f"[lm_train] {name} allocator peak {peak:.2f} GiB over the loop against params + "
+        f"grads + two moments {state_gib:.2f} GiB (16 bytes x {n / 1e9:.4f}B): "
+        f"{peak - state_gib:+.2f} GiB of activations and temporaries")
+
+    adam_cfg = AdamConfig(lr=3e-4, b1=0.9, b2=0.95, weight_decay=0.1, t_max=LM_TRAIN_STEPS)
+    corpus = MarkovCorpus(cfg.vocab_size, seed=0)
+    if var_len:
+        tok, lab, mask = next(corpus.padded_batches(b, s, seed=1))
+    else:
+        (tok, lab), mask = next(corpus.batches(b, s, seed=1)), None
+    batch = {"tokens": torch.from_numpy(tok).cuda(), "labels": torch.from_numpy(lab).cuda()}
+    if mask is not None:
+        batch["attn_mask"] = torch.from_numpy(mask).cuda()
+    tokens = int(mask.sum()) if mask is not None else b * s
+    box = [params, adam_init(adam_cfg, params)]
+    del params
+    step = make_train_step(cfg, adam_cfg=adam_cfg)
+
+    def one():
+        loss, box[0], box[1] = step(box[0], box[1], batch)
+        return float(loss)
+
+    one()
+    times = [_synced(one)[0] * 1e3 for _ in range(2)]
+    step_ms = float(np.median(times))
+    # Two profiled steps of the same work, both printed, the larger kept: a
+    # profile that loses device records reads low (a granite-moe step was
+    # seen at half of each kernel's time, on the same host time).
+    profiles = [profile_device(one) for _ in range(2)]
+    busy, by_name = max(profiles, key=lambda pr: pr[0])
+    idle = max(0.0, 1 - busy / step_ms)
+    n_mm = _matmul_params(cfg, box[0])
+    bound6 = 6 * n_mm * tokens / FP32_FLOPS * 1e3
+    bound8 = 8 * n_mm * tokens / FP32_FLOPS * 1e3
+    log(f"[lm_train] {name} train step alone (in place), B={b} S={s}: {step_ms:.2f} ms host "
+        f"wall (median of {len(times)}, after one warm step; each ends in float(loss)); "
+        f"profiled: device busy {busy:.2f} ms (the two readings "
+        f"{profiles[0][0]:.2f} / {profiles[1][0]:.2f}) -> idle share {idle:.3f}")
+    log(f"[lm_train] {name} FLOP bound: 6 x {n_mm / 1e9:.4f}B matmul params x {tokens} tokens "
+        f"/ 67 TFLOP/s fp32 = {bound6:.2f} ms ({bound6 / step_ms:.3f} of the step); with "
+        f"remat's second forward 8 x = {bound8:.2f} ms ({bound8 / busy:.3f} of busy); "
+        f"attention's S^2 terms not counted")
+    for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:4]:
+        log(f"[lm_train]   {ms:9.3f} ms  {kname[:100]}")
+    out = {"losses": losses, "loop_s": wall, "peak_gib": peak, "state_gib": state_gib,
+           "params": n, "step_ms": step_ms, "busy_ms": busy, "idle": idle,
+           "bound_ms": bound6, "bound_remat_ms": bound8, "tokens": tokens}
+
+    if cfg.n_experts:
+        # The MoE aux: its value at the trained params, and its gradient on
+        # the first MoE layer's router, so it reaches the params as a gradient.
+        layer = next(i for i, spec in enumerate(cfg.layer_plan()) if spec.ffn == "moe")
+        router = box[0]["layers"][layer]["ffn"]["router"].detach().requires_grad_(True)
+        layers = list(box[0]["layers"])
+        layers[layer] = {**layers[layer], "ffn": {**layers[layer]["ffn"], "router": router}}
+        with torch.enable_grad():
+            logits, aux = lm.apply_lm_train(cfg, {**box[0], "layers": layers},
+                                            batch["tokens"], attn_mask=batch.get("attn_mask"))
+            del logits
+            (g,) = torch.autograd.grad(cfg.router_aux_coef * aux, [router])
+        aux, gnorm = float(aux.detach()), float(g.norm())
+        check(np.isfinite(aux) and aux > 0 and gnorm > 0,
+              f"{name} MoE aux {aux} and its router gradient norm {gnorm}")
+        log(f"[lm_train] {name} MoE aux over {sum(sp.ffn == 'moe' for sp in cfg.layer_plan())} "
+            f"layers at the trained params: {aux:.6f} (x coef {cfg.router_aux_coef} = "
+            f"{cfg.router_aux_coef * aux:.6f} of the loss); |d(coef * aux) / d router| "
+            f"of layer {layer} = {gnorm:.3e}")
+        out.update(aux=aux, aux_router_grad_norm=gnorm)
+        del router, layers, g, aux
+    else:
+        # The same step's numbers without donation (value_and_grad, then the
+        # functional adam_update): old and new params and moments at once.
+        params, opt = box
+        box.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        loss, grads = value_and_grad(lambda p: lm.lm_loss(
+            cfg, p, batch["tokens"], batch["labels"]), params)
+        params, opt = adam_update(adam_cfg, grads, opt, params)
+        del grads
+        float(loss)
+        functional_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        box[:] = [params, opt]
+        del params, opt
+        torch.cuda.reset_peak_memory_stats()
+        one()
+        donated_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        log(f"[lm_train] {name} one step's allocator peak: donated {donated_peak:.2f} GiB, "
+            f"functional {functional_peak:.2f} GiB ({(before - base) / 2**30:.2f} GiB held "
+            f"before the step)")
+        out.update(donated_peak_gib=donated_peak, functional_peak_gib=functional_peak)
+    box.clear()
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_cli() -> dict:
+    """The train CLI as a child process on the card: its loss falls, and its
+    checkpoint loads back with ``load_checkpoint`` into the port."""
+    from repro_torch import bridge
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.lm_data import MarkovCorpus
+    from repro_torch.models import lm
+
+    path = os.path.join(ROOT, "build", "lm_train", "cli.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch", LM_CLI_ARCH,
+            "--smoke", "--steps", str(LM_CLI_STEPS), "--checkpoint", path]
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"), "PYTHONUNBUFFERED": "1"}
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=LM_CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"train CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    last = proc.stdout.strip().splitlines()[-2:]
+    m = re.match(r"first loss ([\d.]+) -> last loss ([\d.]+)", last[-1])
+    check(m is not None, f"train CLI's last line: {last}")
+    first, final = float(m.group(1)), float(m.group(2))
+    check(final < first, f"train CLI loss {first} -> {final}")
+    cfg = get_smoke_config(LM_CLI_ARCH)
+    template = bridge.lm_params_to_jax(cfg, lm.init_lm(torch.Generator().manual_seed(1), cfg))
+    tree, meta = load_checkpoint(path, template)
+    check(meta == {"arch": cfg.name, "steps": LM_CLI_STEPS}, f"checkpoint meta {meta}")
+    params = bridge.lm_params_from_jax(cfg, tree, "cuda")
+    tok, lab = (torch.from_numpy(a).cuda() for a in
+                next(MarkovCorpus(cfg.vocab_size, seed=0).batches(8, 128, seed=1)))
+    with torch.no_grad():
+        loss = float(lm.lm_loss(cfg, params, tok, lab))
+    # The trained params: on the CLI's first batch they beat its first step's loss.
+    check(np.isfinite(loss) and loss < first,
+          f"loss of the loaded checkpoint on the CLI's first batch {loss} (first step {first})")
+    log(f"[lm_train] CLI `python -m repro_torch.launch.train --arch {LM_CLI_ARCH} --smoke "
+        f"--steps {LM_CLI_STEPS} --checkpoint build/lm_train/cli.npz`: exit 0 in {wall:.2f} s, "
+        f"loss {first:.4f} -> {final:.4f}; the checkpoint ({os.path.getsize(path)} bytes) "
+        f"loads with load_checkpoint; its loss on the CLI's first batch {loss:.4f}")
+    return {"wall_s": wall, "first_loss": first, "last_loss": final, "loaded_loss": loss}
+
+
+def phase_lm_train(rx, pl2) -> dict:
+    """The LM training path on the card; no kernel of the port is on it, so
+    both launch counts must stay 0."""
+    from repro_torch.configs import ARCH_IDS
+
+    rx.router_xattn_cuda.launches = 0
+    pl2.pairwise_l2_cuda.launches = 0
+    b, s = LM_SMOKE_SHAPE
+    smoke = {name: lm_train_card_vs_cpu(name, b, s) for name in ARCH_IDS}
+    smoke["gemma3-27b@2048"] = lm_train_card_vs_cpu("gemma3-27b", 1, LM_FLASH_S)
+    full = {}
+    for name, var_len in LM_TRAIN_RUNS:
+        t0 = time.perf_counter()
+        full[name] = lm_train_full(name, var_len)
+        log(f"[lm_train] {name} done in {time.perf_counter() - t0:.2f}s; "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
+    cli = lm_train_cli()
+    launches = {"router_xattn": rx.router_xattn_cuda.launches,
+                "pairwise_l2": pl2.pairwise_l2_cuda.launches}
+    check(launches == {"router_xattn": 0, "pairwise_l2": 0},
+          f"the LM training path launched a kernel of the port: {launches}")
+    log(f"[lm_train] launches on the path: {launches} (no kernel of the port is on it)")
+    return {"smoke": smoke, "full": full, "cli": cli, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA GPU",
@@ -3270,6 +3563,14 @@ def main() -> int:
     t0 = time.perf_counter()
     table2 = phase_table2(rx, ref)
     log(f"[table2] phase wall {time.perf_counter() - t0:.2f}s")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2**30
+    check(left < 1.0, f"{left:.2f} GiB still allocated before the LM training phase")
+    t0 = time.perf_counter()
+    lm_train = phase_lm_train(rx, pl2)
+    log(f"[lm_train] phase wall {time.perf_counter() - t0:.2f}s")
     log(f"[device] all phases {time.perf_counter() - t_start:.2f}s")
 
     log(smi)
@@ -3290,7 +3591,8 @@ def main() -> int:
                              "train": train["launches"], "table2": table2["launches"],
                              "attn_long": attn_long["launches"]["router_xattn"],
                              "recurrent": recurrent["launches"]["router_xattn"],
-                             "multimodal": multimodal["launches"]["router_xattn"]},
+                             "multimodal": multimodal["launches"]["router_xattn"],
+                             "lm_train": lm_train["launches"]["router_xattn"]},
         "max_abs_err_trained": {"train": train["max_abs_err"],
                                 "table2": table2["timing"]["max_abs_err"],
                                 "online_after_swap": online["max_abs_err_after_swap"],
@@ -3316,7 +3618,8 @@ def main() -> int:
                              "socket": socket_run["launches"]["pairwise_l2"],
                              "attn_long": attn_long["launches"]["pairwise_l2"],
                              "recurrent": recurrent["launches"]["pairwise_l2"],
-                             "multimodal": multimodal["launches"]["pairwise_l2"]},
+                             "multimodal": multimodal["launches"]["pairwise_l2"],
+                             "lm_train": lm_train["launches"]["pairwise_l2"]},
         "max_abs_err": pl2_err["float32"], "max_abs_err_bf16": pl2_err["bfloat16"],
         **window,
         "library_call": "torch.cdist(x, c).square(), a yardstick: cdist takes a "

@@ -1,10 +1,12 @@
-"""Router checkpoints in the reference's npz layout.
+"""Checkpoints in the reference's npz layout.
 
-``save_router``/``load_router`` read and write the same files as
-``repro.checkpoint``: every leaf under its ``a/b/c`` tree path, plus a
-JSON meta blob stored as uint8 bytes under ``__repro_meta__``. Either
-package loads what the other saved, which is also how a trained router
-crosses from the reference to the port.
+``save_checkpoint``/``load_checkpoint`` and ``save_router``/``load_router``
+read and write the same files as ``repro.checkpoint``: every leaf under
+its ``a/b/c`` tree path, plus a JSON meta blob stored as uint8 bytes
+under ``__repro_meta__``. Either package loads what the other saved,
+which is how a trained router crosses from the reference to the port;
+an LM checkpoint crosses in the reference's stacked layout
+(:func:`repro_torch.bridge.lm_params_to_jax` and ``lm_params_from_jax``).
 """
 from __future__ import annotations
 
@@ -16,7 +18,9 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import DeviceLike, resolve_device
-from repro_torch.common.tree import flatten_with_paths, nest_flat, tree_map
+from repro_torch.common.tree import (
+    flatten_with_paths, nest_flat, tree_map, unflatten_from_paths,
+)
 
 _META_KEY = "__repro_meta__"
 ROUTER_CKPT_KIND = "predictive_router_v1"
@@ -39,6 +43,31 @@ def save_checkpoint(path: str, tree: Any, meta: Optional[Dict] = None) -> None:
     with open(tmp, "wb") as f:
         np.savez(f, **arrays)
     os.replace(tmp, path)
+
+
+def _read(path: str):
+    with np.load(path) as data:
+        meta = json.loads(bytes(data[_META_KEY]).decode("utf-8"))
+        flat = {k: data[k] for k in data.files if k != _META_KEY}
+    return flat, meta
+
+
+def _like(template: Any, leaf: np.ndarray) -> Any:
+    """``leaf`` as the template's leaf is: a tensor of its dtype on its
+    device, or a numpy array of its dtype."""
+    if isinstance(template, torch.Tensor):
+        return torch.from_numpy(np.array(leaf)).to(device=template.device,
+                                                   dtype=template.dtype)
+    return np.asarray(leaf).astype(np.asarray(template).dtype)
+
+
+def load_checkpoint(path: str, template: Any):
+    """Returns (a tree like ``template``, meta). A path of the template that
+    the file lacks raises ``KeyError``; a leaf of another shape,
+    ``ValueError``."""
+    flat, meta = _read(path)
+    tree = unflatten_from_paths(template, flat)
+    return tree_map(_like, template, tree), meta
 
 
 def save_router(path: str, router, pool_names=None) -> None:
@@ -85,9 +114,7 @@ def load_router(path: str, expect_pool_names=None,
     from repro_torch.core.router import PredictiveRouter
 
     device = resolve_device(device)
-    with np.load(path) as data:
-        meta = json.loads(bytes(data[_META_KEY]).decode("utf-8"))
-        flat = {k: data[k] for k in data.files if k != _META_KEY}
+    flat, meta = _read(path)
     if meta.get("kind") != ROUTER_CKPT_KIND:
         raise ValueError(
             f"{path!r} is not a router checkpoint "

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict
 
+import numpy as np
+
 
 def flatten_with_paths(tree: Any, prefix: str = "") -> Dict[str, Any]:
     """Flatten a tree into ``{"a/b/0/c": leaf}`` form."""
@@ -36,9 +38,43 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def unflatten_from_paths(tree_like: Any, flat: Dict[str, Any]) -> Any:
+    """Rebuild a tree with the structure of ``tree_like`` from a flat dict.
+
+    Dicts come back with ``tree_like``'s keys in sorted order, as JAX
+    rebuilds them (the serving codec writes a dict in its order); lists
+    and tuples keep their type and order (``"10"`` comes after ``"9"``,
+    whatever the flat dict's order). A path of ``tree_like`` missing from
+    ``flat`` raises ``KeyError``; a leaf of another shape than
+    ``tree_like``'s raises ``ValueError``.
+    """
+    return _unflatten(tree_like, flat, "")
+
+
+def _unflatten(like: Any, flat: Dict[str, Any], path: str) -> Any:
+    # A module-level function, not a recursive closure: a closure that
+    # calls itself is a reference cycle, which would hold ``flat`` (a
+    # step's gradients) until the garbage collector runs.
+    if isinstance(like, dict):
+        return {k: _unflatten(like[k], flat, f"{path}/{k}" if path else str(k))
+                for k in sorted(like)}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_unflatten(v, flat, f"{path}/{i}" if path else str(i))
+                          for i, v in enumerate(like))
+    if path not in flat:
+        raise KeyError(f"checkpoint missing parameter {path!r}")
+    leaf = flat[path]
+    if tuple(np.shape(leaf)) != tuple(np.shape(like)):
+        raise ValueError(f"shape mismatch for {path!r}: checkpoint "
+                         f"{tuple(np.shape(leaf))} vs model {tuple(np.shape(like))}")
+    return leaf
+
+
 def nest_flat(flat: Dict[str, Any]) -> Dict:
     """Rebuild nested dicts from ``a/b/c`` leaf paths (the inverse of
-    :func:`flatten_with_paths` for trees of dicts)."""
+    :func:`flatten_with_paths` for trees of dicts only: a list comes back
+    as a dict keyed ``"0"``, ``"1"``, ...; with a template tree, use
+    :func:`unflatten_from_paths`)."""
     root: Dict = {}
     for key, leaf in flat.items():
         parts = key.split("/")

@@ -10,10 +10,12 @@ The port of ``repro.models.attention``:
   * sliding window with a ring-buffer cache     [gemma3-27b locals]
   * cross attention to projected media tokens   [llama-3.2-vision]
 
-Prefill takes dense attention below ``FLASH_MIN_SEQ`` tokens and the
-chunked online-softmax ``flash_attention`` from there, as the reference
-does: a Python loop over q chunks, each over its band of k chunks only,
-so a windowed layer skips the chunks left of its window. Decode reads a
+Training and prefill take dense attention below ``FLASH_MIN_SEQ`` tokens
+and the chunked online-softmax ``flash_attention`` from there, as the
+reference does: a Python loop over q chunks, each over its band of k
+chunks only, so a windowed layer skips the chunks left of its window.
+Prefill is the training path's attention, then its keys and values
+written into the decode cache. Decode reads a
 preallocated cache with per-slot positions (``slot_pos``) and per-row pad
 validity (``pad_valid``) for left-padded batches; windowed layers keep a
 ring of ``min(window, max_len)`` slots. Cross attention projects the
@@ -287,18 +289,12 @@ def prefill_self_cache(spec: LayerSpec, cache: Dict, k: torch.Tensor,
     return cache
 
 
-def self_attention_prefill(cfg: ArchConfig, spec: LayerSpec, p: Dict,
-                           x: torch.Tensor, positions: torch.Tensor, cache: Dict,
-                           kv_valid: Optional[torch.Tensor] = None
-                           ) -> Tuple[torch.Tensor, Dict]:
-    """Causal (windowed) self attention over the prompt; also fills the
-    decode cache. Dense below ``FLASH_MIN_SEQ`` tokens, ``flash_attention``
-    from there.
-
-    ``kv_valid`` (B, S) bool marks real keys of a left-padded batch. RoPE
-    logits depend only on position differences, so masking pad keys makes
-    a left-padded row attend exactly as its unpadded self.
-    """
+def _self_attention(cfg: ArchConfig, spec: LayerSpec, p: Dict, x: torch.Tensor,
+                    positions: torch.Tensor, kv_valid: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Causal (windowed) self attention over a full sequence: (out (B,S,D),
+    the RoPE'd keys, the values). Dense below ``FLASH_MIN_SEQ`` tokens,
+    ``flash_attention`` from there."""
     b, s, _ = x.shape
     q = apply_rope(_project_q(cfg, p, x), positions, cfg.rope_theta)
     k, v = _project_kv(cfg, p, x)
@@ -311,8 +307,31 @@ def self_attention_prefill(cfg: ArchConfig, spec: LayerSpec, p: Dict,
         if kv_valid is not None:
             mask = mask & kv_valid[:, None, :]
         out = dense_attention(q, k, v, mask, cfg.attn_logit_softcap)
-    cache = prefill_self_cache(spec, cache, k, v, positions, kv_valid)
-    return out.reshape(b, s, -1) @ p["wo"], cache
+    return out.reshape(b, s, -1) @ p["wo"], k, v
+
+
+def self_attention_full_seq(cfg: ArchConfig, spec: LayerSpec, p: Dict,
+                            x: torch.Tensor, positions: torch.Tensor,
+                            kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Causal (windowed) self attention over a full sequence (the train
+    path). Dense below ``FLASH_MIN_SEQ`` tokens, ``flash_attention`` from
+    there.
+
+    ``kv_valid`` (B, S) bool marks real keys of a left-padded batch. RoPE
+    logits depend only on position differences, so masking pad keys makes
+    a left-padded row attend exactly as its unpadded self.
+    """
+    return _self_attention(cfg, spec, p, x, positions, kv_valid)[0]
+
+
+def self_attention_prefill(cfg: ArchConfig, spec: LayerSpec, p: Dict,
+                           x: torch.Tensor, positions: torch.Tensor, cache: Dict,
+                           kv_valid: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, Dict]:
+    """:func:`self_attention_full_seq` over the prompt, then its keys and
+    values into the decode cache (:func:`prefill_self_cache`)."""
+    out, k, v = _self_attention(cfg, spec, p, x, positions, kv_valid)
+    return out, prefill_self_cache(spec, cache, k, v, positions, kv_valid)
 
 
 def _write_slot(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,

@@ -1,4 +1,5 @@
-"""Core layers: initializers, RMSNorm, RoPE, SwiGLU MLP, embeddings.
+"""Core layers: initializers, RMSNorm, RoPE, SwiGLU MLP, embeddings, the
+token cross-entropy.
 
 Plain functions on nested dicts of tensors, as in ``repro.models.layers``.
 Weights are fp32 ``(d_in, d_out)`` and apply as ``x @ w``. Initializers
@@ -8,7 +9,7 @@ generator's device, so a full-size model is made where it runs.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -133,3 +134,42 @@ def embed_tokens(params: Dict, token_ids: torch.Tensor) -> torch.Tensor:
 
 def lm_logits(params: Dict, x: torch.Tensor) -> torch.Tensor:
     return x @ params["head"]
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def token_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                        vocab_size: int) -> torch.Tensor:
+    """Per-position cross entropy (..., padded_vocab) -> (...) in fp32,
+    with the padded vocab columns pushed down by 1e30."""
+    lg = logits.float()
+    pad = lg.shape[-1] - vocab_size
+    if pad > 0:
+        lg = lg - torch.cat([lg.new_zeros((vocab_size,)), lg.new_full((pad,), 1e30)])
+    gold = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    return torch.logsumexp(lg, dim=-1) - gold
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int,
+                          mask: Optional[torch.Tensor] = None,
+                          seq_chunk: int = 0) -> torch.Tensor:
+    """Mean next-token cross entropy over (B, S, padded_vocab) logits.
+
+    ``seq_chunk`` > 0 takes the loss ``seq_chunk`` positions at a time,
+    with a shorter tail, so the fp32 log-sum-exp intermediate is one
+    chunk's. ``mask`` (B, S) marks the positions that count: the mean is
+    ``sum(loss * mask) / max(sum(mask), 1)``.
+    """
+    s = labels.shape[1]
+    if seq_chunk and s > seq_chunk:
+        losses = torch.cat([token_cross_entropy(logits[:, lo:lo + seq_chunk],
+                                                labels[:, lo:lo + seq_chunk], vocab_size)
+                            for lo in range(0, s, seq_chunk)], dim=1)
+    else:
+        losses = token_cross_entropy(logits, labels, vocab_size)
+    if mask is not None:
+        mask = mask.float()
+        return (losses * mask).sum() / mask.sum().clamp(min=1.0)
+    return losses.mean()

@@ -27,6 +27,10 @@ It is keyword-only everywhere: the reference takes it before ``attn_mask``,
 so a positional copy of a reference call fails at the signature.
 
 Entry points:
+  * train: full sequence -> token loss + MoE aux (:func:`lm_loss`, the
+    loss in sequence chunks; each pattern repeat under
+    ``torch.utils.checkpoint`` with ``remat``), or full logits + aux
+    (:func:`apply_lm_train`)
   * prefill: full prompt -> last-position logits + decode caches (dense
     attention below 2048 tokens, banded flash attention from there; the
     chunkwise mLSTM, the sequential sLSTM and the chunked Mamba scan)
@@ -35,9 +39,10 @@ Entry points:
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (
     ATTN, MAMBA, MLP, MLSTM, MOE, NONE, SLSTM, XATTN, ArchConfig, LayerSpec,
@@ -48,24 +53,31 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (
     apply_mlp, apply_rmsnorm, embed_tokens, init_embedding, init_mlp,
-    init_rmsnorm, lm_logits,
+    init_rmsnorm, lm_logits, token_cross_entropy,
 )
+
+LOSS_SEQ_CHUNK = 512
+
 
 class _Recurrent(NamedTuple):
     """A recurrent mixer's functions; its decode cache is its state."""
     init: Callable
     init_cache: Callable
+    train: Callable
     prefill: Callable
     decode: Callable
 
 
 _RECURRENT = {
     MAMBA: _Recurrent(ssm_mod.init_mamba, ssm_mod.init_mamba_cache,
-                      ssm_mod.apply_mamba_prefill, ssm_mod.apply_mamba_decode),
+                      ssm_mod.apply_mamba_train, ssm_mod.apply_mamba_prefill,
+                      ssm_mod.apply_mamba_decode),
     MLSTM: _Recurrent(xlstm_mod.init_mlstm, xlstm_mod.init_mlstm_cache,
-                      xlstm_mod.apply_mlstm_prefill, xlstm_mod.apply_mlstm_decode),
+                      xlstm_mod.apply_mlstm_train, xlstm_mod.apply_mlstm_prefill,
+                      xlstm_mod.apply_mlstm_decode),
     SLSTM: _Recurrent(xlstm_mod.init_slstm, xlstm_mod.init_slstm_cache,
-                      xlstm_mod.apply_slstm_prefill, xlstm_mod.apply_slstm_decode),
+                      xlstm_mod.apply_slstm_train, xlstm_mod.apply_slstm_prefill,
+                      xlstm_mod.apply_slstm_decode),
 }
 
 
@@ -123,16 +135,20 @@ def init_block_cache(cfg: ArchConfig, spec: LayerSpec, batch: int, max_len: int,
     return _RECURRENT[spec.mixer].init_cache(cfg, batch, device)
 
 
-def _apply_ffn_prefill(cfg: ArchConfig, spec: LayerSpec, p: Dict, x: torch.Tensor,
-                       mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """Prefill takes the reference's train-path FFN: capacity-grouped MoE
-    with pads left out of capacity (``mask``); the aux loss is dropped."""
+def _apply_ffn_train(cfg: ArchConfig, spec: LayerSpec, p: Dict, x: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
+    """(x + FFN(x), MoE aux loss; 0.0 without MoE). ``mask`` (B, S) bool
+    marks real tokens of a left-padded batch; MoE leaves pads out of
+    capacity and the aux loss. Prefill takes this FFN too and drops the
+    aux."""
     if spec.ffn == NONE:
-        return x
+        return x, 0.0
     h = apply_rmsnorm(p["norm2"], x, cfg.norm_eps)
     if spec.ffn == MLP:
-        return x + apply_mlp(p["ffn"], h)
-    return x + moe_mod.apply_moe_train(cfg, p["ffn"], h, mask=mask)[0]
+        return x + apply_mlp(p["ffn"], h), 0.0
+    y, aux = moe_mod.apply_moe_train(cfg, p["ffn"], h, mask=mask)
+    return x + y, aux
 
 
 def _apply_ffn_decode(cfg: ArchConfig, spec: LayerSpec, p: Dict,
@@ -143,6 +159,24 @@ def _apply_ffn_decode(cfg: ArchConfig, spec: LayerSpec, p: Dict,
     if spec.ffn == MLP:
         return x + apply_mlp(p["ffn"], h)
     return x + moe_mod.apply_moe_decode(cfg, p["ffn"], h)
+
+
+def apply_block_train(cfg, spec, p, x, positions, mask=None, *, media=None):
+    """Full-sequence pass of one block: (x, MoE aux loss).
+
+    ``mask`` (B, S) bool marks real tokens of a left-padded batch; every
+    mixer family applies its masked-compute variant (pad keys masked,
+    identity recurrence updates, pad-excluded MoE capacity).
+    """
+    h = apply_rmsnorm(p["norm1"], x, cfg.norm_eps)
+    if spec.mixer == ATTN:
+        y = attn_mod.self_attention_full_seq(cfg, spec, p["mixer"], h, positions,
+                                             kv_valid=mask)
+    elif spec.mixer == XATTN:
+        y = attn_mod.cross_attention_full_seq(cfg, p["mixer"], h, media)
+    else:
+        y = _RECURRENT[spec.mixer].train(cfg, p["mixer"], h, mask=mask)
+    return _apply_ffn_train(cfg, spec, p, x + y, mask)
 
 
 def apply_block_prefill(cfg, spec, p, x, positions, cache, attn_mask=None, *,
@@ -166,7 +200,7 @@ def apply_block_prefill(cfg, spec, p, x, positions, cache, attn_mask=None, *,
     else:
         y, state = _RECURRENT[spec.mixer].prefill(cfg, p["mixer"], h, mask=attn_mask)
         cache.update(state)
-    return _apply_ffn_prefill(cfg, spec, p, x + y, attn_mask), cache
+    return _apply_ffn_train(cfg, spec, p, x + y, attn_mask)[0], cache
 
 
 def apply_block_decode(cfg, spec, p, x, pos: int, cache):
@@ -227,6 +261,99 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
     """Prefill positions ``arange(S)`` for every row (not per-row offsets)."""
     b, s = tokens.shape
     return torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+
+
+def _repeat_train(cfg: ArchConfig, specs, layers, x: torch.Tensor,
+                  positions: torch.Tensor, media, mask) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blocks ``specs`` with params ``layers`` in turn: (x, summed aux)."""
+    aux = x.new_zeros((), dtype=torch.float32)
+    for spec, p in zip(specs, layers):
+        x, a = apply_block_train(cfg, spec, p, x, positions, mask, media=media)
+        aux = aux + a
+    return x, aux
+
+
+def _backbone_train(cfg: ArchConfig, params: Dict, x: torch.Tensor,
+                    positions: torch.Tensor, media, remat: bool = True,
+                    mask: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer plan over (B,S,D) activations: (final-normed x, MoE aux).
+
+    With ``remat`` each repeat of the pattern runs under
+    ``torch.utils.checkpoint`` (non-reentrant), as the reference's
+    ``jax.checkpoint`` around its scan body: autograd keeps the activations
+    only between repeats and recomputes a repeat's in its backward. The
+    forward records autograd as the recompute does, so the Mamba scan takes
+    the same path in both. The remainder layers run without it.
+    """
+    pat = tuple(cfg.pattern)
+    n = len(pat)
+    layers = params["layers"]
+    aux = x.new_zeros((), dtype=torch.float32)
+    for r in range(cfg.n_repeats):
+        block = (cfg, pat, layers[r * n:(r + 1) * n], x, positions, media, mask)
+        x, a = (checkpoint(_repeat_train, *block, use_reentrant=False) if remat
+                else _repeat_train(*block))
+        aux = aux + a
+    x, a = _repeat_train(cfg, cfg.remainder, layers[cfg.n_repeats * n:], x, positions,
+                         media, mask)
+    return apply_rmsnorm(params["final_norm"], x, cfg.norm_eps), aux + a
+
+
+def apply_lm_train(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
+                   media: Optional[torch.Tensor] = None, remat: bool = True,
+                   attn_mask: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full logits (B, S, padded_vocab) and the MoE aux loss (the small-vocab
+    test path; :func:`lm_loss` never holds all the logits).
+
+    ``attn_mask`` (B, S) bool marks real tokens of a left-padded batch
+    (None = all real); masked compute applies in every mixer family.
+    """
+    check_media(cfg, media, tokens.shape[0])
+    x = embed_tokens(params["embedding"], tokens)
+    x, aux = _backbone_train(cfg, params, x, _positions(tokens), media, remat,
+                             mask=attn_mask)
+    return lm_logits(params["embedding"], x), aux
+
+
+def _chunk_loss(cfg: ArchConfig, head: torch.Tensor, xc: torch.Tensor, lc: torch.Tensor,
+                mc: Optional[torch.Tensor]) -> torch.Tensor:
+    """Summed token cross entropy of one sequence chunk."""
+    tok_loss = token_cross_entropy(xc @ head, lc, cfg.vocab_size)
+    if mc is not None:
+        tok_loss = tok_loss * mc
+    return tok_loss.sum()
+
+
+def lm_loss(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, labels: torch.Tensor, *,
+            media: Optional[torch.Tensor] = None, remat: bool = True,
+            attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Next-token cross entropy + ``router_aux_coef`` · MoE aux.
+
+    The loss is taken in chunks of ``LOSS_SEQ_CHUNK`` positions when S is a
+    larger multiple of it, else in one; each chunk runs under
+    ``torch.utils.checkpoint``, so the (B, S, padded_vocab) logits never
+    exist at once and a chunk's are made again in the backward pass.
+    ``attn_mask`` (B, S) bool marks real tokens of a left-padded batch:
+    pads count in neither the numerator nor the denominator
+    (``max(sum(mask), 1)``) and, through the backbone, not in the MoE
+    capacity or aux.
+    """
+    check_media(cfg, media, tokens.shape[0])
+    x = embed_tokens(params["embedding"], tokens)
+    x, aux = _backbone_train(cfg, params, x, _positions(tokens), media, remat,
+                             mask=attn_mask)
+    b, s, _ = x.shape
+    head = params["embedding"]["head"]
+    width = LOSS_SEQ_CHUNK if s > LOSS_SEQ_CHUNK and s % LOSS_SEQ_CHUNK == 0 else s
+    total = sum(checkpoint(_chunk_loss, cfg, head, x[:, lo:lo + width],
+                           labels[:, lo:lo + width],
+                           None if attn_mask is None else attn_mask[:, lo:lo + width],
+                           use_reentrant=False)
+                for lo in range(0, s, width))
+    denom = b * s if attn_mask is None else attn_mask.sum().clamp(min=1)
+    return total / denom + cfg.router_aux_coef * aux
 
 
 def apply_lm_prefill(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,

@@ -118,6 +118,14 @@ def apply_mamba_prefill(cfg: ArchConfig, p: Dict, x: torch.Tensor,
     return out, {"h": h, "conv": conv_tail(xi, cfg.ssm_d_conv)}
 
 
+def apply_mamba_train(cfg: ArchConfig, p: Dict, x: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The training path: :func:`apply_mamba_prefill`'s output without its
+    decode state. While autograd records, the scan keeps every step's
+    state for the backward pass."""
+    return apply_mamba_prefill(cfg, p, x, mask=mask)[0]
+
+
 def init_mamba_cache(cfg: ArchConfig, batch: int, device) -> Dict:
     di, ds, dc = cfg.ssm_d_inner, cfg.ssm_d_state, cfg.ssm_d_conv
     f32 = dict(dtype=torch.float32, device=device)

@@ -12,7 +12,8 @@ input gates exponential with max-stabilisers, as in the reference.
   * sLSTM is strictly sequential (recurrent weights R·h_{t-1}): a loop over
     time with the input projections hoisted out of it, and the four
     block-diagonal recurrent matrices stacked into one (H, dh, 4·dh)
-    product per step.
+    product per step. Training runs the loop in checkpointed segments of
+    ``SLSTM_SEG`` steps, as the reference's two-level scan.
 
 Masked compute (``mask`` (B, S) bool, True at the real tokens of a
 left-padded batch) makes pads identity updates of the carried state, as
@@ -33,11 +34,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import causal_conv, conv_step, conv_tail, dense_init
 
 MLSTM_CHUNK = 256
+SLSTM_SEG = 64
 NEG_INF = -1e30
 R_KEYS = ("r_z", "r_i", "r_f", "r_o")
 
@@ -224,6 +227,13 @@ def apply_mlstm_prefill(cfg: ArchConfig, p: Dict, x: torch.Tensor,
     return out, {**state, "conv": conv_tail(xv, p["conv_w"].shape[0])}
 
 
+def apply_mlstm_train(cfg: ArchConfig, p: Dict, x: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The training path: :func:`apply_mlstm_prefill`'s output without its
+    decode state."""
+    return apply_mlstm_prefill(cfg, p, x, mask=mask)[0]
+
+
 def init_mlstm_cache(cfg: ArchConfig, batch: int, device) -> Dict:
     di, h = cfg.xlstm_d_inner, cfg.xlstm_n_heads
     dh = di // h
@@ -327,12 +337,26 @@ def _slstm_ffn(p: Dict, x: torch.Tensor) -> torch.Tensor:
     return (F.gelu(a, approximate="tanh") * g) @ p["ff_down"]
 
 
-def apply_slstm_prefill(cfg: ArchConfig, p: Dict, x: torch.Tensor,
-                        mask: Optional[torch.Tensor] = None
-                        ) -> Tuple[torch.Tensor, Dict]:
-    """The prompt through one sLSTM mixer: (out (B,T,d), decode state
-    {c, n, m, h}). At a pad step the cell state is carried through
-    unchanged, so a row's real trajectory is its unpadded run's."""
+def _slstm_steps(wx: torch.Tensor, r: torch.Tensor, cnmh: torch.Tensor,
+                 keep: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sLSTM over W·x + b (T, H, B, 4·dh) from the stacked state
+    (c, n, m, h) (4, H, B, dh); ``keep`` (T, 1, 1, B, 1) or None. Returns
+    (the final stacked state, h at every step (T, H, B, dh))."""
+    hs = []
+    for i in range(wx.shape[0]):
+        new = torch.stack(_slstm_cell(torch.baddbmm(wx[i], cnmh[3], r), *cnmh[:3]))
+        cnmh = new if keep is None else torch.where(keep[i], new, cnmh)
+        hs.append(cnmh[3])
+    return cnmh, torch.stack(hs)
+
+
+def _slstm_run(cfg: ArchConfig, p: Dict, x: torch.Tensor, mask: Optional[torch.Tensor],
+               segments: bool) -> Tuple[torch.Tensor, Dict]:
+    """(out (B,T,d), final state) of one sLSTM mixer. With ``segments``, a
+    sequence of ``T % SLSTM_SEG == 0`` and ``T > SLSTM_SEG`` runs each
+    segment under ``torch.utils.checkpoint``, the reference's two-level
+    scan: autograd keeps the carries only at segment boundaries and
+    recomputes the steps within a segment."""
     b, t, d = x.shape
     nh = cfg.xlstm_n_heads
     wx = _wx_heads(x @ p["w"] + p["b"], nh)                 # hoisted: (T,H,B,4dh)
@@ -341,14 +365,34 @@ def apply_slstm_prefill(cfg: ArchConfig, p: Dict, x: torch.Tensor,
     # (c, n, m, h) stacked: one select per step carries a pad step through.
     cnmh = torch.stack([_state_heads(state[key], nh) for key in "cnmh"])
     keep = None if mask is None else mask.t()[:, None, None, :, None]  # (T,1,1,B,1)
-    hs = []
-    for i in range(t):
-        new = torch.stack(_slstm_cell(torch.baddbmm(wx[i], cnmh[3], r), *cnmh[:3]))
-        cnmh = new if keep is None else torch.where(keep[i], new, cnmh)
-        hs.append(cnmh[3])
-    h_seq = torch.stack(hs).permute(2, 0, 1, 3).reshape(b, t, d)
-    out = _slstm_ffn(p, h_seq.to(x.dtype))
+    if segments and t % SLSTM_SEG == 0 and t > SLSTM_SEG:
+        hs = []
+        for lo in range(0, t, SLSTM_SEG):
+            seg = slice(lo, lo + SLSTM_SEG)
+            cnmh, h = checkpoint(_slstm_steps, wx[seg], r, cnmh,
+                                 None if keep is None else keep[seg], use_reentrant=False)
+            hs.append(h)
+        h_seq = torch.cat(hs)
+    else:
+        cnmh, h_seq = _slstm_steps(wx, r, cnmh, keep)
+    out = _slstm_ffn(p, h_seq.permute(2, 0, 1, 3).reshape(b, t, d).to(x.dtype))
     return out, {key: _state_rows(s) for key, s in zip("cnmh", cnmh)}
+
+
+def apply_slstm_prefill(cfg: ArchConfig, p: Dict, x: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, Dict]:
+    """The prompt through one sLSTM mixer: (out (B,T,d), decode state
+    {c, n, m, h}). At a pad step the cell state is carried through
+    unchanged, so a row's real trajectory is its unpadded run's."""
+    return _slstm_run(cfg, p, x, mask, segments=False)
+
+
+def apply_slstm_train(cfg: ArchConfig, p: Dict, x: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The training path: the prefill's steps, in checkpointed segments of
+    ``SLSTM_SEG`` when the length allows (:func:`_slstm_run`)."""
+    return _slstm_run(cfg, p, x, mask, segments=True)[0]
 
 
 def apply_slstm_decode(cfg: ArchConfig, p: Dict, x: torch.Tensor,

@@ -1,9 +1,10 @@
-"""AdamW with the reference's cosine schedule, over dicts of tensors.
+"""AdamW with the reference's cosine schedule, over trees of tensors.
 
 The port of ``repro.training.optim``, written functionally as the
 reference is: ``adam_update`` returns new params and a new state and
-changes nothing it was given. It keeps three details of the reference
-that ``torch.optim.AdamW`` with ``CosineAnnealingLR`` does not:
+changes nothing it was given, unless the caller donates them
+(``donate=True``, the LM train step). It keeps three details of the
+reference that ``torch.optim.AdamW`` with ``CosineAnnealingLR`` does not:
 
   * the step counter is incremented before the learning rate is taken,
     so the first update uses lr(t = 1);
@@ -12,7 +13,9 @@ that ``torch.optim.AdamW`` with ``CosineAnnealingLR`` does not:
     Adam step.
 
 The step counter and the learning rate stay on the params' device, so an
-update makes no host round trip. Moments are float32 by default.
+update makes no host round trip. Moments are float32 by default. Trees
+are rebuilt in the structure of the params given (lists stay lists, in
+their order), so an LM's ``params["layers"]`` list comes back a list.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.common.tree import flatten_with_paths, nest_flat, tree_map
+from repro_torch.common.tree import flatten_with_paths, tree_map, unflatten_from_paths
 
 
 class AdamState(NamedTuple):
@@ -62,8 +65,15 @@ def adam_init(cfg: AdamConfig, params: Any) -> AdamState:
 
 @torch.no_grad()
 def adam_update(cfg: AdamConfig, grads: Any, state: AdamState,
-                params: Any) -> Tuple[Any, AdamState]:
-    """One AdamW step. Returns (new_params, new_state)."""
+                params: Any, *, donate: bool = False) -> Tuple[Any, AdamState]:
+    """One AdamW step. Returns (new_params, new_state).
+
+    ``donate=True`` is the counterpart of the reference's
+    ``donate_argnums=(0, 1)``: each new leaf of the params and the moments
+    is written into its old tensor as soon as it exists, so the old trees
+    are not held beside the new ones; the numbers are the same, and the
+    caller must not read the old trees afterwards.
+    """
     step = state.step + 1
     lr = cosine_lr(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
@@ -84,9 +94,15 @@ def adam_update(cfg: AdamConfig, grads: Any, state: AdamState,
         return p_new, m_new.to(cfg.moment_dtype), v_new.to(cfg.moment_dtype)
 
     flat_g, flat_m, flat_v = (flatten_with_paths(x) for x in (grads, state.m, state.v))
+    if donate:
+        for k, p in flatten_with_paths(params).items():
+            olds = (p, flat_m[k], flat_v[k])
+            for old, new in zip(olds, upd(p, flat_g[k], *olds[1:])):
+                old.copy_(new)
+        return params, AdamState(step=step, m=state.m, v=state.v)
     out = {k: upd(p, flat_g[k], flat_m[k], flat_v[k])
            for k, p in flatten_with_paths(params).items()}
-    new = [nest_flat({k: o[i] for k, o in out.items()}) for i in range(3)]
+    new = [unflatten_from_paths(params, {k: o[i] for k, o in out.items()}) for i in range(3)]
     return new[0], AdamState(step=step, m=new[1], v=new[2])
 
 
@@ -96,9 +112,9 @@ def value_and_grad(loss_fn: Callable, params: Dict, *args) -> Tuple[torch.Tensor
     leaves = {k: v.detach().requires_grad_(True)
               for k, v in flatten_with_paths(params).items()}
     with torch.enable_grad():
-        loss = loss_fn(nest_flat(leaves), *args)
+        loss = loss_fn(unflatten_from_paths(params, leaves), *args)
         grads = torch.autograd.grad(loss, list(leaves.values()))
-    return loss.detach(), nest_flat(dict(zip(leaves, grads)))
+    return loss.detach(), unflatten_from_paths(params, dict(zip(leaves, grads)))
 
 
 def make_train_step(cfg: AdamConfig, loss_fn: Callable):

@@ -3,8 +3,8 @@ mixture-of-experts member, sliding-window and long-prompt attention, the
 recurrent members (xlstm-1.3b, the jamba hybrid), the last three
 configs (musicgen-large, llama4-maverick, cross attention with
 llama-3.2-vision and its stub media), the Mamba scan's gradient, the
-online adaptation and cascade layers, the kernel-dispatch profiler, and the
-socket fleet's two processes, on the card.
+online adaptation and cascade layers, the kernel-dispatch profiler, the
+socket fleet's two processes, and an LM train step, on the card.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (marker ``cuda``) and
 skips without one: a CUDA kernel has no CPU mode. The file imports no JAX,
@@ -831,3 +831,46 @@ def test_serve_socket_fleet_on_the_card(cuda, tmp_path, capfd):
     for pid in (0, 1):
         for name in ("kernel:router_xattn_pool", "kernel:pairwise_l2"):
             assert kernels.get((pid, name), 0) > 0, (pid, name, kernels)
+
+
+# ---------------------------------------------------------------------------
+# LM training on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["qwen3-0.6b", "granite-moe-1b-a400m"])
+def test_train_step_on_the_card_equals_the_cpu(cuda, name):
+    """One ``make_train_step`` step at smoke size from the same params and
+    batch, card against CPU: the loss within 1e-5 relative; each moment
+    leaf within 1e-4 of its largest magnitude; the new params within lr
+    everywhere and within 1e-6 in all but 1e-4 of their entries (Adam
+    moves an entry whose gradient is at the rounding level by up to lr on
+    either device; ``tests/test_torch_launch.py`` holds the CPU to the
+    reference so). MoE at capacity factor 8.0, so no assignment is
+    dropped."""
+    import dataclasses
+
+    from repro_torch.common.tree import flatten_with_paths
+    from repro_torch.data.lm_data import MarkovCorpus
+    from repro_torch.launch.steps import TRAIN_ADAM, make_train_step
+    from repro_torch.training.optim import adam_init
+
+    cfg = dataclasses.replace(get_smoke_config(name), capacity_factor=8.0)
+    params = lm.init_lm(torch.Generator().manual_seed(0), cfg)
+    tok, lab = next(MarkovCorpus(cfg.vocab_size, seed=0).batches(4, 64, seed=1))
+    out = {}
+    for device in ("cpu", cuda):
+        p = tree_map(lambda a: a.to(device, copy=True), params)   # the step updates in place
+        batch = {"tokens": torch.from_numpy(tok).to(device),
+                 "labels": torch.from_numpy(lab).to(device)}
+        loss, new, state = make_train_step(cfg)(p, adam_init(TRAIN_ADAM, p), batch)
+        out[str(device)] = (float(loss), *(flatten_with_paths(tree_map(lambda a: a.cpu(), t))
+                                           for t in (new, state.m, state.v)))
+    (loss_c, new_c, m_c, v_c), (loss_g, new_g, m_g, v_g) = out["cpu"], out["cuda"]
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    for got, want in ((m_g, m_c), (v_g, v_c)):
+        for key in want:
+            err = float((got[key] - want[key]).abs().max())
+            assert err <= 1e-4 * float(want[key].abs().max()), (key, err)
+    diff = torch.cat([(new_g[k] - new_c[k]).abs().flatten() for k in new_c])
+    assert float(diff.max()) <= TRAIN_ADAM.lr
+    assert float((diff > 1e-6).float().mean()) <= 1e-4

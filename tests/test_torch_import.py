@@ -58,6 +58,8 @@ REQUIRED = {
     "repro_torch.online.updater", "repro_torch.online.loop", "repro_torch.cascade",
     "repro_torch.cascade.policy", "repro_torch.cascade.coordinator",
     "repro_torch.launch.serve", "repro_torch.serving.scheduler",
+    "repro_torch.launch.train", "repro_torch.launch.steps", "repro_torch.data.lm_data",
+    "repro_torch.common.dtypes",
 }
 
 
@@ -155,3 +157,15 @@ def test_serve_without_device_raises_without_cuda(no_cuda):
             main(["--smoke", "--trace", "drift", "--requests", "4", "--trace-profile",
                   *extra])
         assert ops.get_kernel_profiler() is None
+
+
+def test_train_without_device_raises_without_cuda(no_cuda):
+    """The LM training entry points: no device and no card raise before
+    anything is built."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import main, train_loop
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_loop(get_smoke_config("qwen3-0.6b"), steps=1, batch=2, seq=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--arch", "qwen3-0.6b", "--smoke", "--steps", "1"])
