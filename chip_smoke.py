@@ -182,15 +182,27 @@ Phases (any failure raises and exits non-zero before the last line):
      child process (``python -m repro_torch.launch.train --arch qwen3-0.6b
      --smoke --steps 20 --checkpoint build/lm_train/cli.npz``): exit 0, its
      loss falling, its checkpoint loaded back with ``load_checkpoint``.
+ 21. mesh: the LM steps on a 1x1 NCCL mesh (``make_debug_mesh(1, 1)``;
+     params, moments and batches as DTensors placed by the reference's
+     rules): qwen3-0.6b at published size, B 8, S 1024, three
+     ``make_train_step`` steps from the same seeded params with the mesh
+     and with ``mesh=None`` (losses within 1e-6 relative, each step's ms,
+     the idle share, the allocator's peak, DTensor's overhead per step);
+     one granite-moe-1b-a400m ``var_len`` step on the mesh against the
+     plain step (1e-5); the group destroyed; then the dry-run as child
+     processes that see no card: at the same shape on a 1x1 mesh (its
+     FLOPs within 1% of the real step's ``FlopCounterMode`` count, beside
+     6·N·T; its peak beside the allocator's), and qwen3-0.6b train_4k on
+     the fake 16x16 production mesh (its record's figures).
 Each path (serve, moe, trace, lookup, online, cascade, obs, fleet, socket,
-attn_long, recurrent, multimodal, lm_train) runs with every kernel's launch count set to 0 just
+attn_long, recurrent, multimodal, lm_train, mesh) runs with every kernel's launch count set to 0 just
 before it and read just after; a kernel of the path that was not launched
 fails the run (the socket path launches in its child processes, so its counts
 are the profiler's kernel spans in its merged trace, one per launch on the
 card, and this process's own counts must stay 0) (the cascade's ``attn-ens`` router scores on the plain
 predictor, as the reference's does, so only ``pairwise_l2`` runs there;
-no kernel of the port is on the LM training path, so both counts must
-stay 0 there).
+no kernel of the port is on the LM training path or the mesh path, so
+both counts must stay 0 there).
 The kernel checks on trained params (train, table2) are counted the same
 way. The second-to-last line is a JSON object with the kernels' numbers,
 the last ``{"ok": true, "device": {...}}``. The kernel libraries are built
@@ -3450,6 +3462,180 @@ def phase_lm_train(rx, pl2) -> dict:
     return {"smoke": smoke, "full": full, "cli": cli, "launches": launches}
 
 
+# [mesh]: the LM steps on a 1x1 NCCL mesh (DTensor params, moments, batch),
+# qwen3-0.6b at published size against mesh=None, one granite-moe var_len
+# step; the dry-run's counts against the real step's; one production cell.
+MESH_ARCH, MESH_MOE = "qwen3-0.6b", "granite-moe-1b-a400m"
+MESH_STEPS = 3
+# [lm_train]'s qwen3-0.6b step (ms, host clock) and allocator peak (GiB)
+# on an H100 80GB HBM3 at 700 W, as PERF.md section 5 records them.
+LM_TRAIN_QWEN3 = (1345.86, 19.28)
+MESH_DRYRUN_TIMEOUT_S = 400
+MESH_DIR = os.path.join(ROOT, "build", "mesh")
+
+
+def _mesh_steps(cfg, mesh, batches, count_flops=False) -> dict:
+    """Train steps from seed-0 params over ``batches`` on ``mesh`` (None:
+    the plain step): losses, each step's ms on the host clock ending in a
+    sync, the first step's ``FlopCounterMode`` count, one more step under
+    torch.profiler for the busy time, and the allocator's peak."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import sharding
+    from repro_torch.launch.steps import TRAIN_ADAM, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.training.optim import adam_init
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_lm(torch.Generator("cuda").manual_seed(0), cfg)
+    if mesh is not None:
+        params = sharding.distribute_params(cfg, mesh, params)
+    box = [params, adam_init(TRAIN_ADAM, params)]
+    del params
+    step = make_train_step(cfg, mesh)
+    place = (lambda b: b) if mesh is None else (lambda b: sharding.distribute_batch(mesh, b))
+
+    def one(b):
+        loss, box[0], box[1] = step(box[0], box[1], place(b))
+        return float(loss)
+
+    losses, ms, flops = [], [], None
+    for i, b in enumerate(batches):
+        if i == 0 and count_flops:
+            with FlopCounterMode(display=False) as counter:
+                secs, loss = _synced(lambda: one(b))
+            flops = counter.get_total_flops()
+        else:
+            secs, loss = _synced(lambda: one(b))
+        losses.append(loss)
+        ms.append(secs * 1e3)
+    busy, _ = profile_device(lambda: one(batches[-1]))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    n_mm = _matmul_params(cfg, box[0])
+    box.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    warm = float(np.mean(ms[1:])) if len(ms) > 1 else ms[0]
+    return {"losses": losses, "ms": ms, "warm_ms": warm, "busy_ms": busy,
+            "idle": max(0.0, 1 - busy / warm), "peak_gib": peak, "flops": flops,
+            "matmul_params": n_mm}
+
+
+def _dryrun_child(*args) -> dict:
+    """``python -m repro_torch.launch.dryrun`` as a child process that sees
+    no card (a host tool): its record."""
+    argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--out-dir", MESH_DIR, *args]
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"), "CUDA_VISIBLE_DEVICES": "",
+           "OMP_NUM_THREADS": "2"}
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=MESH_DRYRUN_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"dry-run {args} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("[dryrun]")][-1]
+    tag = line.split()[1].rstrip(":")
+    with open(os.path.join(MESH_DIR, tag + ".json")) as fh:
+        rec = json.load(fh)
+    check(rec["status"] == "ok", f"dry-run {tag}: {rec}")
+    log(f"[mesh] dry-run child ({wall:.2f} s wall): {line}")
+    return {**rec, "wall_s": wall}
+
+
+def phase_mesh(rx, pl2) -> dict:
+    """The LM steps on a 1x1 NCCL mesh against the plain steps, and the
+    dry-run's per-device accounting; no kernel of the port is on the path."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import MarkovCorpus
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    rx.router_xattn_cuda.launches = 0
+    pl2.pairwise_l2_cuda.launches = 0
+    b, s = LM_TRAIN_SHAPE
+    mesh = make_debug_mesh(1, 1)
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"mesh process group {dist.get_backend()} of {dist.get_world_size()}")
+    log(f"[mesh] {mesh} over {dist.get_backend()} (world size {dist.get_world_size()})")
+    try:
+        cfg = get_config(MESH_ARCH)
+        corpus = MarkovCorpus(cfg.vocab_size, seed=0).batches(b, s, seed=1)
+        batches = [{k: torch.from_numpy(a).cuda() for k, a in zip(("tokens", "labels"),
+                                                                   next(corpus))}
+                   for _ in range(MESH_STEPS)]
+        plain = _mesh_steps(cfg, None, batches, count_flops=True)
+        meshed = _mesh_steps(cfg, mesh, batches, count_flops=True)
+        for tag, run in (("mesh=None", plain), ("1x1 mesh", meshed)):
+            log(f"[mesh] {MESH_ARCH} B={b} S={s} {tag}: losses "
+                + " ".join(f"{x:.6f}" for x in run["losses"]) + "; step ms "
+                + " / ".join(f"{x:.2f}" for x in run["ms"])
+                + f" (the first under FlopCounterMode: {run['flops']:.4e} FLOPs); warm "
+                f"{run['warm_ms']:.2f} ms, device busy {run['busy_ms']:.2f} ms -> idle share "
+                f"{run['idle']:.3f}; allocator peak {run['peak_gib']:.2f} GiB "
+                f"([lm_train]: {LM_TRAIN_QWEN3[0]} ms, {LM_TRAIN_QWEN3[1]} GiB)")
+        rel = max(abs(m - p) / abs(p) for m, p in zip(meshed["losses"], plain["losses"]))
+        check(rel <= 1e-6, f"{MESH_ARCH} mesh losses {meshed['losses']} vs {plain['losses']}")
+        check(meshed["flops"] == plain["flops"],
+              f"FlopCounterMode: mesh step {meshed['flops']} vs plain {plain['flops']}")
+        overhead = meshed["warm_ms"] - plain["warm_ms"]
+        log(f"[mesh] losses within {rel:.2e} relative (tol 1e-6); DTensor's overhead per "
+            f"warm step {overhead:+.2f} ms ({overhead / plain['warm_ms']:+.3f} of the plain "
+            f"step), busy {meshed['busy_ms'] - plain['busy_ms']:+.2f} ms")
+
+        moe_cfg = get_config(MESH_MOE)
+        tok, lab, mask = next(MarkovCorpus(moe_cfg.vocab_size, seed=0).padded_batches(
+            b, s, seed=1))
+        moe_batch = [{"tokens": torch.from_numpy(tok).cuda(),
+                      "labels": torch.from_numpy(lab).cuda(),
+                      "attn_mask": torch.from_numpy(mask).cuda()}]
+        moe_plain = _mesh_steps(moe_cfg, None, moe_batch)
+        moe_mesh = _mesh_steps(moe_cfg, mesh, moe_batch)
+        moe_rel = abs(moe_mesh["losses"][0] - moe_plain["losses"][0]) / moe_plain["losses"][0]
+        check(moe_rel <= 1e-5, f"{MESH_MOE} var_len mesh loss {moe_mesh['losses']} vs "
+              f"{moe_plain['losses']}")
+        log(f"[mesh] {MESH_MOE} var_len B={b} S={s} ({int(mask.sum())} real tokens), one "
+            f"step: loss {moe_mesh['losses'][0]:.6f} on the mesh (one-hot einsum dispatch) vs "
+            f"{moe_plain['losses'][0]:.6f} plain (index dispatch), rel {moe_rel:.2e} (tol "
+            f"1e-5); {moe_mesh['ms'][0]:.2f} vs {moe_plain['ms'][0]:.2f} ms (first step); "
+            f"allocator peak {moe_mesh['peak_gib']:.2f} vs {moe_plain['peak_gib']:.2f} GiB")
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "the mesh's process group is destroyed")
+
+    # The two host-side children at once: neither touches the card.
+    with ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(_dryrun_child, "--mesh", "1x1", "--arch", MESH_ARCH, "--shape",
+                            "train_4k", "--batch", str(b), "--seq", str(s)),
+                pool.submit(_dryrun_child, "--arch", MESH_ARCH, "--shape", "train_4k")]
+        one, prod = [job.result() for job in jobs]
+    bound = 6 * meshed["matmul_params"] * b * s
+    check(abs(one["flops"] - meshed["flops"]) <= 1e-2 * meshed["flops"],
+          f"dry-run 1x1 FLOPs {one['flops']} vs the real step's {meshed['flops']}")
+    peak_ratio = one["peak_bytes_per_device"] / 2**30 / meshed["peak_gib"]
+    log(f"[mesh] dry-run 1x1 at B={b} S={s}: {one['flops']:.4e} FLOPs, the real step's "
+        f"FlopCounterMode {meshed['flops']:.4e} (ratio {one['flops'] / meshed['flops']:.6f}), "
+        f"6·N·T {bound:.4e} ({one['flops'] / bound:.3f} of it); peak "
+        f"{one['peak_bytes_per_device'] / 2**30:.2f} GiB per device against the allocator's "
+        f"{meshed['peak_gib']:.2f} GiB (ratio {peak_ratio:.3f}); traced in {one['compile_s']} s")
+    log(f"[mesh] production cell {MESH_ARCH} train_4k on {prod['mesh']} ({prod['chips']} "
+        f"chips, B 256, S 4096, full depth): {prod['flops']:.4e} FLOPs, peak "
+        f"{prod['peak_bytes_per_device'] / 2**30:.2f} GiB, collectives "
+        f"{prod['collective_bytes_per_device']:.4e} B in {prod['n_collectives']} ("
+        + ", ".join(f"{k} {v:.4e}" for k, v in sorted(prod["collective_breakdown"].items()))
+        + f") per device and step; traced in {prod['compile_s']} s")
+    launches = {"router_xattn": rx.router_xattn_cuda.launches,
+                "pairwise_l2": pl2.pairwise_l2_cuda.launches}
+    check(launches == {"router_xattn": 0, "pairwise_l2": 0},
+          f"the mesh path launched a kernel of the port: {launches}")
+    log(f"[mesh] launches on the path: {launches} (no kernel of the port is on it)")
+    return {"plain": plain, "mesh": meshed, "loss_rel": rel, "overhead_ms": overhead,
+            "moe": {"plain": moe_plain, "mesh": moe_mesh, "loss_rel": moe_rel},
+            "dryrun_1x1": one, "production": prod, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA GPU",
@@ -3571,6 +3757,12 @@ def main() -> int:
     t0 = time.perf_counter()
     lm_train = phase_lm_train(rx, pl2)
     log(f"[lm_train] phase wall {time.perf_counter() - t0:.2f}s")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_run = phase_mesh(rx, pl2)
+    log(f"[mesh] phase wall {time.perf_counter() - t0:.2f}s")
     log(f"[device] all phases {time.perf_counter() - t_start:.2f}s")
 
     log(smi)
@@ -3592,7 +3784,8 @@ def main() -> int:
                              "attn_long": attn_long["launches"]["router_xattn"],
                              "recurrent": recurrent["launches"]["router_xattn"],
                              "multimodal": multimodal["launches"]["router_xattn"],
-                             "lm_train": lm_train["launches"]["router_xattn"]},
+                             "lm_train": lm_train["launches"]["router_xattn"],
+                             "mesh": mesh_run["launches"]["router_xattn"]},
         "max_abs_err_trained": {"train": train["max_abs_err"],
                                 "table2": table2["timing"]["max_abs_err"],
                                 "online_after_swap": online["max_abs_err_after_swap"],
@@ -3619,7 +3812,8 @@ def main() -> int:
                              "attn_long": attn_long["launches"]["pairwise_l2"],
                              "recurrent": recurrent["launches"]["pairwise_l2"],
                              "multimodal": multimodal["launches"]["pairwise_l2"],
-                             "lm_train": lm_train["launches"]["pairwise_l2"]},
+                             "lm_train": lm_train["launches"]["pairwise_l2"],
+                             "mesh": mesh_run["launches"]["pairwise_l2"]},
         "max_abs_err": pl2_err["float32"], "max_abs_err_bf16": pl2_err["bfloat16"],
         **window,
         "library_call": "torch.cdist(x, c).square(), a yardstick: cdist takes a "

@@ -38,6 +38,18 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def map_with_paths(fn: Callable[[str, Any], Any], tree: Any, prefix: str = "") -> Any:
+    """Apply ``fn(path, leaf)`` to every leaf, keeping dict/list/tuple
+    structure; ``path`` is the leaf's :func:`flatten_with_paths` key."""
+    def sub(key):
+        return f"{prefix}/{key}" if prefix else str(key)
+    if isinstance(tree, dict):
+        return {k: map_with_paths(fn, v, sub(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_with_paths(fn, v, sub(i)) for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
 def unflatten_from_paths(tree_like: Any, flat: Dict[str, Any]) -> Any:
     """Rebuild a tree with the structure of ``tree_like`` from a flat dict.
 

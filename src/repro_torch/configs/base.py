@@ -9,8 +9,7 @@ port runs the plan as a plain loop over layers.
 engine's $ cost rates derive from it, so both packages must price every
 member the same: the port copies the count term for term, also where it
 differs from the reference's own init (ROADMAP.md Queue 3). Every
-field of the reference but ``supports_long_context`` and ``max_seq_len``
-is here (those come back with the per-config shape accounting).
+field of the reference is here, with its default.
 """
 from __future__ import annotations
 
@@ -94,10 +93,17 @@ class ArchConfig:
     n_frontend_tokens: int = 0         # image patches / audio frames per item
     frontend_dim: int = 0              # raw embedding dim from the stub encoder
 
+    # Eligibility: sub-quadratic decode for long_500k (configs/shapes.py).
+    supports_long_context: bool = False
+
     # Layer plan.
     pattern: Tuple[LayerSpec, ...] = (LayerSpec(),)
     n_repeats: int = 1
     remainder: Tuple[LayerSpec, ...] = ()
+
+    # Max positions: a sanity bound only; caches size themselves from the
+    # request.
+    max_seq_len: int = 1 << 20
 
     # Norm epsilon.
     norm_eps: float = 1e-6

@@ -5,9 +5,7 @@
 (ring KV cache), globals use full attention.
 62 = 10 x (5 local + 1 global) + 2 local remainder.
 
-The port's copy of the reference's config, field for field, less the
-reference's long_500k eligibility flag: the port has no long_500k path
-(ROADMAP.md Queue 3). As in the
+The port's copy of the reference's config, field for field. As in the
 reference, every layer takes ``rope_theta`` 1e6, the locals too (the
 published model gives its locals a base of 1e4).
 """
@@ -36,6 +34,7 @@ CONFIG = ArchConfig(
     pattern=(_LOCAL,) * 5 + (_GLOBAL,),
     n_repeats=10,
     remainder=(_LOCAL, _LOCAL),
+    supports_long_context=True,
 )
 
 

@@ -19,6 +19,7 @@ CONFIG = ArchConfig(
     vocab_size=49155,
     pattern=(LayerSpec(mixer=ATTN, ffn=MLP),),
     n_repeats=40,
+    supports_long_context=False,
 )
 
 

@@ -22,6 +22,7 @@ CONFIG = ArchConfig(
     d_ff_expert=512,
     pattern=(LayerSpec(mixer=ATTN, ffn=MOE),),
     n_repeats=24,
+    supports_long_context=False,
 )
 
 

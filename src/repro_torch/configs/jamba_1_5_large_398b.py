@@ -4,8 +4,7 @@
 [arXiv:2403.19887]. Jamba block = 8 layers with attention at index 3 and MoE
 on every odd layer; 72 = 9 x 8. Mamba layers decode from a recurrent state.
 
-The port's copy of the reference's config, field for field, less the
-reference's long_500k eligibility flag (ROADMAP.md Queue 3).
+The port's copy of the reference's config, field for field.
 """
 import dataclasses
 
@@ -39,6 +38,7 @@ CONFIG = ArchConfig(
     ssm_expand=2,
     pattern=_jamba_pattern(),
     n_repeats=9,
+    supports_long_context=True,
 )
 
 

@@ -6,8 +6,7 @@
 "early fusion" multimodality: the image tokenizer is the carve-out stub —
 the backbone consumes fused text/image token ids directly.
 
-The port's copy of the reference's config, field for field, less the
-reference's long_500k eligibility flag (ROADMAP.md Queue 3).
+The port's copy of the reference's config, field for field.
 """
 import dataclasses
 
@@ -31,6 +30,7 @@ CONFIG = ArchConfig(
     rope_theta=500_000.0,
     pattern=(LayerSpec(mixer=ATTN, ffn=MLP), LayerSpec(mixer=ATTN, ffn=MOE)),
     n_repeats=24,
+    supports_long_context=False,
 )
 
 

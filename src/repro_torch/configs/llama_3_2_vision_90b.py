@@ -9,8 +9,7 @@ patch embeddings (n_frontend_tokens x frontend_dim; a served member gets a
 seeded stub from ``launch/serve.py::build_pool``); the learned projector +
 cross-attention layers that consume them are real.
 
-The port's copy of the reference's config, field for field, less the
-reference's long_500k eligibility flag (ROADMAP.md Queue 3).
+The port's copy of the reference's config, field for field.
 """
 import dataclasses
 
@@ -32,6 +31,7 @@ CONFIG = ArchConfig(
     pattern=(LayerSpec(mixer=ATTN, ffn=MLP),) * 4
     + (LayerSpec(mixer=XATTN, ffn=MLP),),
     n_repeats=20,
+    supports_long_context=False,
 )
 
 

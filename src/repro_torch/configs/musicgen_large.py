@@ -5,8 +5,7 @@ The EnCodec audio codec (mel/conv frontend) is the carve-out stub: the
 language backbone consumes codec *token ids* directly: int32 codebook
 tokens of the published vocab.
 
-The port's copy of the reference's config, field for field, less the
-reference's long_500k eligibility flag (ROADMAP.md Queue 3).
+The port's copy of the reference's config, field for field.
 """
 import dataclasses
 
@@ -24,6 +23,7 @@ CONFIG = ArchConfig(
     vocab_size=2048,
     pattern=(LayerSpec(mixer=ATTN, ffn=MLP),),
     n_repeats=48,
+    supports_long_context=False,   # pure full attention
 )
 
 

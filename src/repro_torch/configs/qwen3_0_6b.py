@@ -21,6 +21,7 @@ CONFIG = ArchConfig(
     rope_theta=1_000_000.0,
     pattern=(LayerSpec(mixer=ATTN, ffn=MLP),),
     n_repeats=28,
+    supports_long_context=False,
 )
 
 

@@ -4,8 +4,7 @@
 d_ff=0: blocks own their projections (mLSTM: up-projection x2; sLSTM: a
 gated post-FFN). The decode cache is a recurrent state, not a KV cache.
 
-The port's copy of the reference's config, field for field, less the
-reference's long_500k eligibility flag (ROADMAP.md Queue 3).
+The port's copy of the reference's config, field for field.
 """
 import dataclasses
 
@@ -28,6 +27,7 @@ CONFIG = ArchConfig(
     xlstm_expand=2,
     pattern=_PATTERN,
     n_repeats=6,
+    supports_long_context=True,
 )
 
 

@@ -27,6 +27,8 @@ from repro_torch.checkpoint import save_checkpoint
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.lm_data import MarkovCorpus
+from repro_torch.common.tree import tree_map
+from repro_torch.launch.sharding import distribute_batch, distribute_params
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import lm as lm_mod
 from repro_torch.training.optim import AdamConfig, adam_init
@@ -58,12 +60,19 @@ def train_loop(
     and aux see only real tokens. ``media_fn(i)`` gives step ``i``'s media
     for a config with cross-attention layers. One ``float(loss)`` per step
     syncs with the device, as in the reference.
+
+    With a ``mesh`` (``launch/mesh.py``) the params are distributed under
+    ``launch/sharding.py``'s rules (the moments mirror them) and so is
+    each batch; the returned params are DTensors, and a checkpoint is
+    written from their gathered values.
     """
     device = resolve_device(device)
     adam_cfg = AdamConfig(lr=lr, b1=0.9, b2=0.95, weight_decay=0.1, t_max=steps)
     step_fn = make_train_step(cfg, mesh, adam_cfg)
     params = lm_mod.init_lm(torch.Generator(device).manual_seed(seed), cfg)
-    opt_state = adam_init(adam_cfg, params)
+    if mesh is not None:
+        params = distribute_params(cfg, mesh, params)
+    opt_state = adam_init(adam_cfg, params)       # moments placed as the params
 
     corpus = MarkovCorpus(cfg.vocab_size, seed=seed)
     if var_len:
@@ -84,13 +93,16 @@ def train_loop(
             b["attn_mask"] = torch.from_numpy(mask).to(device)
         if media_fn is not None:
             b["media"] = media_fn(i)
+        if mesh is not None:
+            b = distribute_batch(mesh, b)
         loss, params, opt_state = step_fn(params, opt_state, b)
         losses.append(float(loss))
         if i % log_every == 0 or i == steps - 1:
             print(f"step {i:5d}  loss {losses[-1]:.4f}  "
                   f"({(time.time()-t0)/(i+1):.2f}s/step)", flush=True)
     if checkpoint_path:
-        save_checkpoint(checkpoint_path, lm_params_to_jax(cfg, params),
+        whole = params if mesh is None else tree_map(lambda t: t.full_tensor(), params)
+        save_checkpoint(checkpoint_path, lm_params_to_jax(cfg, whole),
                         {"arch": cfg.name, "steps": steps})
         print(f"saved checkpoint to {checkpoint_path}")
     return params, losses

@@ -33,9 +33,12 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import XATTN, ArchConfig, LayerSpec
+from repro_torch.models import runtime_flags
 from repro_torch.models.layers import apply_rmsnorm, apply_rope, dense_init, init_rmsnorm
+from repro_torch.models.sharding_ctx import batch_local, merge, shard, unflatten
 
 # Masked logits. Finite on purpose: a left-padded row's pad queries see only
 # masked keys, and -inf there would give NaN that reaches real rows through
@@ -93,11 +96,10 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec) -> Di
 
 
 def _project_q(cfg: ArchConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
-    b, s, _ = x.shape
     q = x @ p["wq"]
     if cfg.qkv_bias:
         q = q + p["bq"]
-    q = q.reshape(b, s, cfg.n_heads, cfg.resolved_head_dim)
+    q = unflatten(q, -1, (cfg.n_heads, cfg.resolved_head_dim))
     if cfg.qk_norm:
         q = apply_rmsnorm(p["q_norm"], q, cfg.norm_eps)
     return q
@@ -105,14 +107,13 @@ def _project_q(cfg: ArchConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
 
 def _project_kv(cfg: ArchConfig, p: Dict,
                 x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    b, s, _ = x.shape
     hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
-    k = k.reshape(b, s, hkv, hd)
-    v = v.reshape(b, s, hkv, hd)
+    k = unflatten(k, -1, (hkv, hd))
+    v = unflatten(v, -1, (hkv, hd))
     if cfg.qk_norm:
         k = apply_rmsnorm(p["k_norm"], k, cfg.norm_eps)
     return k, v
@@ -130,7 +131,10 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: Optional[torch.Tensor], softcap: float = 0.0) -> torch.Tensor:
     """Unchunked GQA attention. q (B,Sq,Hq,D); k,v (B,Sk,Hkv,D);
     mask (B or 1, Sq, Sk) bool, True where a key is visible. ``softcap``
-    > 0 caps the logits before masking."""
+    > 0 caps the logits before masking. On a mesh it runs on each rank's
+    batch shard (``batch_local``)."""
+    if isinstance(q, DTensor):
+        return batch_local(dense_attention, (q, k, v, mask, softcap), (0, 0, 0, 0, None))
     b, sq, hq, hd = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, sq, hkv, hq // hkv, hd) * (1.0 / math.sqrt(hd))
@@ -184,11 +188,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     keys of a left-padded batch. Each q chunk visits only the k chunks of
     its :func:`flash_band`, carrying the running max, normaliser and fp32
     accumulator across them, as the reference's ``lax.scan`` does. S must be a multiple of both chunks
-    (each taken as at most S), as the reference asserts.
+    (each taken as at most S), as the reference asserts. On a mesh it runs
+    on each rank's batch shard (``batch_local``).
     """
+    if isinstance(q, DTensor):
+        return batch_local(
+            lambda q_, k_, v_, valid: flash_attention(
+                q_, k_, v_, window=window, q_chunk=q_chunk, k_chunk=k_chunk,
+                softcap=softcap, kv_valid=valid),
+            (q, k, v, kv_valid), (0, 0, 0, 0))
     b, s, hq, hd = q.shape
     hkv = k.shape[2]
     g = hq // hkv
+    q_chunk, k_chunk = runtime_flags.flash_chunk(q_chunk), runtime_flags.flash_chunk(k_chunk)
     q_chunk, k_chunk = min(q_chunk, s), min(k_chunk, s)
     if s % q_chunk or s % k_chunk:
         raise ValueError(
@@ -282,11 +294,23 @@ def prefill_self_cache(spec: LayerSpec, cache: Dict, k: torch.Tensor,
         cache["pad_valid"].copy_(valid[:, s - length:][:, order])
         return cache
     n = min(s, length)
-    cache["k"][:, :n] = k[:, :n]
-    cache["v"][:, :n] = v[:, :n]
-    cache["slot_pos"][:n] = positions[0, :n].to(torch.int32)
-    cache["pad_valid"][:, :n] = valid[:, :n]
+    _write_prefix(cache["k"], k, n, 1)
+    _write_prefix(cache["v"], v, n, 1)
+    _write_prefix(cache["slot_pos"], positions[0].to(torch.int32), n, 0)
+    _write_prefix(cache["pad_valid"], valid, n, 1)
     return cache
+
+
+def _write_prefix(dst: torch.Tensor, src: torch.Tensor, n: int, dim: int) -> None:
+    """Copy ``src``'s first ``n`` entries along ``dim`` into ``dst``'s. On
+    a mesh ``dst``'s slots may be sharded, so a write into the prefix's
+    view would land in a redistributed copy: ``dst`` is rewritten whole,
+    into its own placements."""
+    if isinstance(dst, DTensor):
+        rest = dst.narrow(dim, n, dst.shape[dim] - n)
+        dst.copy_(torch.cat([src.narrow(dim, 0, n), rest], dim=dim))
+    else:
+        dst.narrow(dim, 0, n).copy_(src.narrow(dim, 0, n))
 
 
 def _self_attention(cfg: ArchConfig, spec: LayerSpec, p: Dict, x: torch.Tensor,
@@ -299,6 +323,9 @@ def _self_attention(cfg: ArchConfig, spec: LayerSpec, p: Dict, x: torch.Tensor,
     q = apply_rope(_project_q(cfg, p, x), positions, cfg.rope_theta)
     k, v = _project_kv(cfg, p, x)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard(q, "batch", "seq", "heads", None)
+    k = shard(k, "batch", "seq", "kv_heads", None)
+    v = shard(v, "batch", "seq", "kv_heads", None)
     if s >= FLASH_MIN_SEQ:
         out = flash_attention(q, k, v, window=spec.window,
                               softcap=cfg.attn_logit_softcap, kv_valid=kv_valid)
@@ -307,7 +334,7 @@ def _self_attention(cfg: ArchConfig, spec: LayerSpec, p: Dict, x: torch.Tensor,
         if kv_valid is not None:
             mask = mask & kv_valid[:, None, :]
         out = dense_attention(q, k, v, mask, cfg.attn_logit_softcap)
-    return out.reshape(b, s, -1) @ p["wo"], k, v
+    return merge(out, 2) @ p["wo"], k, v
 
 
 def self_attention_full_seq(cfg: ArchConfig, spec: LayerSpec, p: Dict,
@@ -345,6 +372,17 @@ def _write_slot(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
         slot = pos
     else:
         raise ValueError(f"decode position {pos} outside the cache's {length} slots")
+    if isinstance(cache["k"], DTensor):
+        # On a mesh the slots may be sharded ("cache_seq" on "model"), so a
+        # write into one slot's view would land in a redistributed copy:
+        # each tensor is rewritten whole, as the reference's
+        # dynamic_update_slice does, into its own placements.
+        hit = torch.arange(length, device=k_new.device) == slot
+        cache["k"].copy_(torch.where(hit[None, :, None, None], k_new, cache["k"]))
+        cache["v"].copy_(torch.where(hit[None, :, None, None], v_new, cache["v"]))
+        cache["slot_pos"].copy_(torch.where(hit, pos, cache["slot_pos"]))
+        cache["pad_valid"].copy_(cache["pad_valid"] | hit[None, :])
+        return
     cache["k"][:, slot] = k_new[:, 0]
     cache["v"][:, slot] = v_new[:, 0]
     cache["slot_pos"][slot] = pos
@@ -361,14 +399,16 @@ def self_attention_decode(cfg: ArchConfig, spec: LayerSpec, p: Dict,
     k_new, v_new = _project_kv(cfg, p, x)
     k_new = apply_rope(k_new, pos_b, cfg.rope_theta)
     _write_slot(cache, k_new, v_new, pos, spec.window > 0)
+    k = shard(cache["k"], "batch", "cache_seq", "kv_heads", None)
+    v = shard(cache["v"], "batch", "cache_seq", "kv_heads", None)
     # Valid = slot holds a position in (pos - W, pos] AND is not a pad.
     sp = cache["slot_pos"]
     valid = (sp >= 0) & (sp <= pos)
     if spec.window > 0:
         valid &= sp > pos - spec.window
     mask = valid[None, None, :] & cache["pad_valid"][:, None, :]
-    out = dense_attention(q, cache["k"], cache["v"], mask, cfg.attn_logit_softcap)
-    return out.reshape(b, 1, -1) @ p["wo"], cache
+    out = dense_attention(q, k, v, mask, cfg.attn_logit_softcap)
+    return merge(out, 2) @ p["wo"], cache
 
 
 # ---------------------------------------------------------------------------
@@ -387,7 +427,7 @@ def _attend_media(cfg: ArchConfig, p: Dict, x: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor) -> torch.Tensor:
     b, s, _ = x.shape
     out = dense_attention(_project_q(cfg, p, x), k, v, None, cfg.attn_logit_softcap)
-    return out.reshape(b, s, -1) @ p["wo"]
+    return merge(out, 2) @ p["wo"]
 
 
 def cross_attention_full_seq(cfg: ArchConfig, p: Dict, x: torch.Tensor,

@@ -13,6 +13,9 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
+from repro_torch.models.sharding_ctx import gather_fsdp, shard
 
 # ---------------------------------------------------------------------------
 # Initializers
@@ -85,6 +88,7 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int) -> Dict:
 
 def apply_mlp(params: Dict, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    h = shard(h, "batch", "seq", "ff")
     return h @ params["w_down"]
 
 
@@ -128,12 +132,17 @@ def init_embedding(gen: torch.Generator, padded_vocab: int, d_model: int) -> Dic
 
 
 def embed_tokens(params: Dict, token_ids: torch.Tensor) -> torch.Tensor:
-    """Rows of the table; int32 ids are widened for ``F.embedding``."""
-    return F.embedding(token_ids.long(), params["table"])
+    """Rows of the table; int32 ids are widened for ``F.embedding``.
+
+    On a mesh the table is gathered over the FSDP axes first, so it is
+    sharded on the vocab only and the batch-sharded ids look up in it in
+    place: each rank masks the rows its vocab shard holds, and the
+    caller's ``shard`` sums the masked partial rows."""
+    return F.embedding(token_ids.long(), gather_fsdp(params["table"]))
 
 
 def lm_logits(params: Dict, x: torch.Tensor) -> torch.Tensor:
-    return x @ params["head"]
+    return x @ gather_fsdp(params["head"])
 
 
 # ---------------------------------------------------------------------------
@@ -148,6 +157,19 @@ def token_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     pad = lg.shape[-1] - vocab_size
     if pad > 0:
         lg = lg - torch.cat([lg.new_zeros((vocab_size,)), lg.new_full((pad,), 1e30)])
+    if isinstance(lg, DTensor):
+        # On a mesh the logits are vocab-sharded: each rank picks the gold
+        # logit from its own columns (zero elsewhere) and takes the
+        # log-sum-exp's max and sum over its own columns; the reductions
+        # over the vocab then add up the ranks' parts, so no rank holds a
+        # whole vocab row (vocab-parallel cross entropy). DTensor's own
+        # logsumexp gathers the logits first.
+        axes = ("batch", "seq")[:lg.ndim - 1]
+        cols = torch.arange(lg.shape[-1], device=lg.device)
+        gold = torch.where(cols == labels.long()[..., None], lg, 0.0).sum(dim=-1)
+        top = shard(lg.amax(dim=-1).detach(), *axes)
+        lse = torch.log(shard(torch.exp(lg - top[..., None]).sum(dim=-1), *axes)) + top
+        return lse - shard(gold, *axes)
     gold = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
     return torch.logsumexp(lg, dim=-1) - gold
 

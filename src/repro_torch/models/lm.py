@@ -42,8 +42,10 @@ from __future__ import annotations
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.common.tree import map_with_paths, tree_map
 from repro_torch.configs.base import (
     ATTN, MAMBA, MLP, MLSTM, MOE, NONE, SLSTM, XATTN, ArchConfig, LayerSpec,
 )
@@ -55,6 +57,7 @@ from repro_torch.models.layers import (
     apply_mlp, apply_rmsnorm, embed_tokens, init_embedding, init_mlp,
     init_rmsnorm, lm_logits, token_cross_entropy,
 )
+from repro_torch.models.sharding_ctx import gather_fsdp, shard
 
 LOSS_SEQ_CHUNK = 512
 
@@ -168,6 +171,7 @@ def apply_block_train(cfg, spec, p, x, positions, mask=None, *, media=None):
     mixer family applies its masked-compute variant (pad keys masked,
     identity recurrence updates, pad-excluded MoE capacity).
     """
+    p = gather_fsdp(p)
     h = apply_rmsnorm(p["norm1"], x, cfg.norm_eps)
     if spec.mixer == ATTN:
         y = attn_mod.self_attention_full_seq(cfg, spec, p["mixer"], h, positions,
@@ -190,6 +194,7 @@ def apply_block_prefill(cfg, spec, p, x, positions, cache, attn_mask=None, *,
     unmasked: a pad query's output reaches no real token, since later
     layers mask pad keys.
     """
+    p = gather_fsdp(p)
     h = apply_rmsnorm(p["norm1"], x, cfg.norm_eps)
     if spec.mixer == ATTN:
         y, cache = attn_mod.self_attention_prefill(cfg, spec, p["mixer"], h,
@@ -204,6 +209,7 @@ def apply_block_prefill(cfg, spec, p, x, positions, cache, attn_mask=None, *,
 
 
 def apply_block_decode(cfg, spec, p, x, pos: int, cache):
+    p = gather_fsdp(p)
     h = apply_rmsnorm(p["norm1"], x, cfg.norm_eps)
     if spec.mixer == ATTN:
         y, cache = attn_mod.self_attention_decode(cfg, spec, p["mixer"], h, cache, pos)
@@ -231,6 +237,45 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Dict:
         "final_norm": init_rmsnorm(cfg.d_model, gen.device),
         "layers": [init_block(gen, cfg, spec) for spec in plan],
     }
+
+
+class _ShapesOnly(TorchDispatchMode):
+    """Runs an init as a shape computation on the meta device: every
+    tensor it makes is made there, its random fills are skipped, and a
+    data-dependent read (a rejection-sampling loop's ``any()``) sees 0."""
+
+    _SKIP = (torch.ops.aten.uniform_, torch.ops.aten.normal_)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if func._overloadpacket in self._SKIP:
+            return args[0]
+        if func is torch.ops.aten._local_scalar_dense.default:
+            return False if args[0].dtype == torch.bool else 0
+        if "device" in kwargs:
+            kwargs["device"] = torch.device("meta")
+        return func(*args, **kwargs)
+
+
+def abstract_params(cfg: ArchConfig, dtype: torch.dtype = torch.float32) -> Dict:
+    """Meta tensors shaped as :func:`init_lm`'s params, in ``dtype``:
+    the dry-run's params, which allocate nothing."""
+    with _ShapesOnly():
+        params = init_lm(torch.Generator().manual_seed(0), cfg)
+    return tree_map(lambda p: p.to(dtype), params)
+
+
+def abstract_caches(cfg: ArchConfig, batch: int, max_len: int,
+                    dtype: torch.dtype = torch.float32) -> List[Dict]:
+    """Meta tensors shaped as :func:`init_caches`' caches, allocating
+    nothing. As in the reference, the K/V and conv-window leaves take
+    ``dtype`` and the recurrent states stay float32."""
+    return map_with_paths(
+        lambda path, c: c.to(dtype) if path.rsplit("/", 1)[-1] in _CACHE_CAST else c,
+        init_caches(cfg, batch, max_len, "meta"))
+
+
+_CACHE_CAST = ("k", "v", "conv")
 
 
 def seed_qkv_biases(params: Dict, cfg: ArchConfig, seed: int = 7) -> Dict:
@@ -294,6 +339,7 @@ def _backbone_train(cfg: ArchConfig, params: Dict, x: torch.Tensor,
         block = (cfg, pat, layers[r * n:(r + 1) * n], x, positions, media, mask)
         x, a = (checkpoint(_repeat_train, *block, use_reentrant=False) if remat
                 else _repeat_train(*block))
+        x = shard(x, "batch", "seq", "embed")
         aux = aux + a
     x, a = _repeat_train(cfg, cfg.remainder, layers[cfg.n_repeats * n:], x, positions,
                          media, mask)
@@ -311,7 +357,7 @@ def apply_lm_train(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
     (None = all real); masked compute applies in every mixer family.
     """
     check_media(cfg, media, tokens.shape[0])
-    x = embed_tokens(params["embedding"], tokens)
+    x = shard(embed_tokens(params["embedding"], tokens), "batch", "seq", "embed")
     x, aux = _backbone_train(cfg, params, x, _positions(tokens), media, remat,
                              mask=attn_mask)
     return lm_logits(params["embedding"], x), aux
@@ -320,7 +366,7 @@ def apply_lm_train(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
 def _chunk_loss(cfg: ArchConfig, head: torch.Tensor, xc: torch.Tensor, lc: torch.Tensor,
                 mc: Optional[torch.Tensor]) -> torch.Tensor:
     """Summed token cross entropy of one sequence chunk."""
-    tok_loss = token_cross_entropy(xc @ head, lc, cfg.vocab_size)
+    tok_loss = token_cross_entropy(xc @ gather_fsdp(head), lc, cfg.vocab_size)
     if mc is not None:
         tok_loss = tok_loss * mc
     return tok_loss.sum()
@@ -341,7 +387,7 @@ def lm_loss(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, labels: torch.T
     capacity or aux.
     """
     check_media(cfg, media, tokens.shape[0])
-    x = embed_tokens(params["embedding"], tokens)
+    x = shard(embed_tokens(params["embedding"], tokens), "batch", "seq", "embed")
     x, aux = _backbone_train(cfg, params, x, _positions(tokens), media, remat,
                              mask=attn_mask)
     b, s, _ = x.shape
@@ -367,11 +413,14 @@ def apply_lm_prefill(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
     what the cross-attention layers read (:func:`check_media`).
     """
     check_media(cfg, media, tokens.shape[0])
-    x = embed_tokens(params["embedding"], tokens)
+    x = shard(embed_tokens(params["embedding"], tokens), "batch", "seq", "embed")
     positions = _positions(tokens)
-    for spec, p, cache in zip(cfg.layer_plan(), params["layers"], caches):
+    n = len(cfg.pattern)
+    for i, (spec, p, cache) in enumerate(zip(cfg.layer_plan(), params["layers"], caches)):
         x, _ = apply_block_prefill(cfg, spec, p, x, positions, cache,
                                    attn_mask=attn_mask, media=media)
+        if i < cfg.n_repeats * n and i % n == n - 1:     # a pattern repeat's end
+            x = shard(x, "batch", "seq", "embed")
     x_last = apply_rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     return lm_logits(params["embedding"], x_last), caches
 
@@ -380,7 +429,7 @@ def apply_lm_decode(cfg: ArchConfig, params: Dict, token: torch.Tensor,
                     caches: List[Dict], pos: int
                     ) -> Tuple[torch.Tensor, List[Dict]]:
     """One decode step. token (B,1); ``pos`` the next position, one for the batch."""
-    x = embed_tokens(params["embedding"], token)
+    x = shard(embed_tokens(params["embedding"], token), "batch", "seq", "embed")
     for spec, p, cache in zip(cfg.layer_plan(), params["layers"], caches):
         x, _ = apply_block_decode(cfg, spec, p, x, pos, cache)
     x = apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)

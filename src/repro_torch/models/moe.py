@@ -32,9 +32,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import apply_mlp, dense_init
+from repro_torch.models.sharding_ctx import batch_local, shard
 
 
 def _expert_init(gen: torch.Generator, e: int, d_in: int, d_out: int) -> torch.Tensor:
@@ -106,24 +108,20 @@ def _experts(p: Dict, xe: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, p["w_down"])
 
 
-def _dispatch_groups(cfg: ArchConfig, p: Dict, x: torch.Tensor,
-                     capacity_factor: float = 0.0,
-                     valid: Optional[torch.Tensor] = None,
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Capacity dispatch over G independent groups of T tokens.
-
-    x (G, T, D); valid (G, T) bool or None. Returns (out (G, T, D),
-    aux (G,), dropped (G,)): ``dropped`` counts the real-token (token,
-    slot) assignments the capacity struck.
-    """
-    g, t, d = x.shape
+def _route(cfg: ArchConfig, p: Dict, x: torch.Tensor, capacity_factor: float,
+           valid: Optional[torch.Tensor]):
+    """The reference's routing over G groups of T tokens, x (G, T, D):
+    (probs (G,T,E), gate_idx (G,T,k), gate_vals (G,T,k) renormalised and
+    zero where dropped, slot_onehot (G,T,k,E) zero at pads, pos (G,T,k)
+    each slot's buffer position, keep (G,T,k), real (True or (G,T,1)),
+    cap)."""
+    g, t, _ = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = _capacity(t, cfg, capacity_factor)
-
     probs = _router_probs(p, x)                                  # (G, T, E)
     gate_vals, gate_idx = torch.topk(probs, k, dim=-1)           # descending
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
-    slot_onehot = F.one_hot(gate_idx, e).float()                 # (G, T, k, E)
+    slot_onehot = (gate_idx[..., None] == torch.arange(e, device=x.device)).float()  # (G,T,k,E)
     eff_cap, real = cap, True           # no mask: every token is real
     if valid is not None:
         vf, real = valid.float(), valid[..., None]
@@ -140,14 +138,66 @@ def _dispatch_groups(cfg: ArchConfig, p: Dict, x: torch.Tensor,
     pos_in_expert = (torch.cumsum(flat, dim=1) - flat).reshape(g, t, k, e)
     pos = (pos_in_expert * slot_onehot).sum(dim=-1)              # (G, T, k)
     keep = pos < eff_cap
-    gate_vals = gate_vals * keep
+    return probs, gate_idx, gate_vals * keep, slot_onehot, pos, keep, real, cap
 
+
+def _dispatch_mesh(cfg: ArchConfig, p: Dict, x: torch.Tensor, capacity_factor: float,
+                   valid: Optional[torch.Tensor]
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`_dispatch_groups` on a mesh, by the reference's one-hot
+    capacity formulation: the index dispatch's row numbers are global, so
+    they cannot address a batch-sharded buffer. Routing, the one-hot
+    dispatch and combine weights and each group's expert buffers run on
+    each rank's groups (``batch_local``); the experts' matmuls are
+    DTensor ``bmm``s with the experts sharded as their weights are (on
+    "model"); the combine is a ``bmm`` whose sum over the experts' shards
+    is then reduced. Same kept assignments and gates, sums in another
+    order."""
+    e = cfg.n_experts
+
+    def tokens(x, valid, router):
+        probs, _, gate_vals, slot_onehot, pos, keep, real, cap = _route(
+            cfg, {"router": router}, x, capacity_factor, valid)
+        pos_oh = (pos[..., None] == torch.arange(cap, device=x.device)).to(x.dtype)
+        kept = (slot_onehot * keep[..., None]).to(x.dtype)                # (G,T,k,E)
+        dispatch = torch.einsum("gtke,gtkc->gtec", kept, pos_oh).flatten(2)
+        combine = torch.einsum("gtk,gtke,gtkc->gtec", gate_vals.to(x.dtype), kept,
+                               pos_oh).flatten(2)                          # (G,T,E·C)
+        xe = torch.bmm(dispatch.transpose(1, 2), x)                        # (G,E·C,D)
+        aux = _aux_groups(probs, slot_onehot.sum(dim=2), valid)
+        return xe, combine, aux, (~keep & real).sum(dim=(1, 2))
+
+    xe, combine, aux, dropped = batch_local(tokens, (x, valid, p["router"]), (0, 0, None))
+    g, cap = x.shape[0], xe.shape[1] // e
+    xe = shard(xe.unflatten(1, (e, cap)).permute(1, 0, 2, 3),
+               "expert", "batch", None, None)                             # (E,G,C,D)
+    ye = shard(_experts(p, xe.flatten(1, 2)), "expert", "batch", None)    # (E,G·C,D)
+    ye = ye.unflatten(1, (g, cap)).permute(1, 0, 2, 3).flatten(1, 2)      # (G,E·C,D)
+    return shard(torch.bmm(combine, ye), "batch", None, None), aux, dropped
+
+
+def _dispatch_groups(cfg: ArchConfig, p: Dict, x: torch.Tensor,
+                     capacity_factor: float = 0.0,
+                     valid: Optional[torch.Tensor] = None,
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Capacity dispatch over G independent groups of T tokens.
+
+    x (G, T, D); valid (G, T) bool or None. Returns (out (G, T, D),
+    aux (G,), dropped (G,)): ``dropped`` counts the real-token (token,
+    slot) assignments the capacity struck.
+    """
+    if isinstance(x, DTensor):
+        return _dispatch_mesh(cfg, p, x, capacity_factor, valid)
+    g, t, d = x.shape
+    k = cfg.top_k
+    probs, gate_idx, gate_vals, slot_onehot, pos, keep, real, cap = _route(
+        cfg, p, x, capacity_factor, valid)
     # Kept real slots write their token into buffer row g·cap + pos of
     # their expert; the rest write the spare last row, which no kept slot reads.
     spare = g * cap
     base = torch.arange(g, device=x.device)[:, None, None] * cap
     row = torch.where(keep & real, base + pos.long(), spare)      # (G, T, k)
-    xe = x.new_zeros((e, spare + 1, d))
+    xe = x.new_zeros((cfg.n_experts, spare + 1, d))
     xe[gate_idx.reshape(-1), row.reshape(-1)] = \
         x[:, :, None, :].expand(g, t, k, d).reshape(-1, d)
     ye = _experts(p, xe)                                         # (E, G·cap + 1, D)
@@ -187,6 +237,7 @@ def apply_moe_train(cfg: ArchConfig, p: Dict, x: torch.Tensor, seq_chunk: int = 
     :func:`_moe_train_masked`). Returns (out, aux loss).
     """
     b, s, d = x.shape
+    x = shard(x, "batch", "seq", "embed")
     if mask is not None:
         out, aux = _moe_train_masked(cfg, p, x, seq_chunk, mask)
     elif s > seq_chunk and s % seq_chunk == 0:
@@ -213,21 +264,29 @@ def _moe_train_masked(cfg: ArchConfig, p: Dict, x: torch.Tensor, seq_chunk: int,
     if s <= seq_chunk:
         out, auxes, _ = _dispatch_groups(cfg, p, x, valid=mask)
         return out, _aux_mean(auxes, mask)
-    # Unique keys (pad?, position): valid first, order kept without relying
-    # on the sort's stability.
-    position = torch.arange(s, device=x.device)[None, :]
-    order = torch.argsort(torch.where(mask, 0, 1) * s + position, dim=1)
-    inv = torch.argsort(order, dim=1)
-    xs = torch.gather(x, 1, order[..., None].expand(b, s, d))
-    ms = torch.gather(mask, 1, order)
     s_pad = -(-s // seq_chunk) * seq_chunk
-    if s_pad != s:
-        xs = F.pad(xs, (0, 0, 0, s_pad - s))
-        ms = F.pad(ms, (0, s_pad - s))
+
+    def compact(x, mask):
+        # Unique keys (pad?, position): valid first, order kept without
+        # relying on the sort's stability.
+        position = torch.arange(s, device=x.device)[None, :]
+        order = torch.argsort(torch.where(mask, 0, 1) * s + position, dim=1)
+        xs = torch.gather(x, 1, order[..., None].expand(-1, s, d))
+        ms = torch.gather(mask, 1, order)
+        if s_pad != s:
+            xs = F.pad(xs, (0, 0, 0, s_pad - s))
+            ms = F.pad(ms, (0, s_pad - s))
+        return xs, ms, torch.argsort(order, dim=1)
+
+    def restore(out, inv):
+        return torch.gather(out[:, :s], 1, inv[..., None].expand(-1, s, d))
+
+    # Per row, so on a mesh each rank sorts its own rows (batch_local).
+    xs, ms, inv = batch_local(compact, (x, mask), (0, 0))
     mc = ms.reshape(-1, seq_chunk)
     out, auxes, _ = _dispatch_groups(cfg, p, xs.reshape(-1, seq_chunk, d), valid=mc)
-    out = out.reshape(b, s_pad, d)[:, :s]
-    return torch.gather(out, 1, inv[..., None].expand(b, s, d)), _aux_mean(auxes, mc)
+    return (batch_local(restore, (out.reshape(b, s_pad, d), inv), (0, 0)),
+            _aux_mean(auxes, mc))
 
 
 def _aux_mean(auxes: torch.Tensor, masks: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -258,7 +317,7 @@ def apply_moe_decode(cfg: ArchConfig, p: Dict, x: torch.Tensor,
     depend on its neighbours.
     """
     b, s, d = x.shape
-    x2d = x.reshape(-1, d)
+    x2d = shard(x, "batch", "seq", "embed").reshape(-1, d)
     cf_full = cfg.n_experts / cfg.top_k
     outs, drops = [], []
     for lo in range(0, x2d.shape[0], chunk):

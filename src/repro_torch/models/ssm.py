@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import causal_conv, conv_step, conv_tail, dense_init
+from repro_torch.models.sharding_ctx import batch_local, shard
 
 SSM_CHUNK = 128
 
@@ -70,32 +71,26 @@ def _dt_b_c(cfg: ArchConfig, p: Dict, xc: torch.Tensor):
     ds, dtr = cfg.ssm_d_state, cfg.resolved_dt_rank
     dt_r, b_mat, c_mat = (xc @ p["x_proj"]).split([dtr, ds, ds], dim=-1)
     dt = F.softplus((dt_r @ p["dt_proj"]).float() + p["dt_bias"])
-    return dt, b_mat.float(), c_mat.float()
+    # On a mesh x_proj contracts the model-sharded d_inner, so B and C come
+    # out as partial sums; the state takes them summed (the reduction GSPMD
+    # inserts for the reference).
+    return (dt, shard(b_mat.float(), "batch", "seq", None),
+            shard(c_mat.float(), "batch", "seq", None))
 
 
 def _out(p: Dict, y: torch.Tensor, xc: torch.Tensor, z: torch.Tensor,
          dtype) -> torch.Tensor:
     y = y + xc.float() * p["D"]
-    return (y * F.silu(z.float())).to(dtype) @ p["out_proj"]
+    y = shard((y * F.silu(z.float())).to(dtype), "batch", "seq", "ssm_inner")
+    return y @ p["out_proj"]
 
 
-def apply_mamba_prefill(cfg: ArchConfig, p: Dict, x: torch.Tensor,
-                        mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
-    """The prompt through one Mamba mixer: (out (B,S,d), decode state
-    {h (B,di,ds), conv (B,dc-1,di)}). A left-padded row's real positions
-    and final state match its unpadded run."""
-    b, s, _ = x.shape
-    xi, z = (x @ p["in_proj"]).chunk(2, dim=-1)
-    if mask is not None:
-        xi = torch.where(mask[..., None], xi, 0.0)
-    xc = F.silu(causal_conv(p, xi) + p["conv_b"])
-    dt, b_mat, c_mat = _dt_b_c(cfg, p, xc)
-    if mask is not None:
-        dt = torch.where(mask[..., None], dt, 0.0)
-    neg_a = -torch.exp(p["A_log"])                              # (di, ds)
-    h = x.new_zeros((b, cfg.ssm_d_inner, cfg.ssm_d_state), dtype=torch.float32)
+def _scan(dt: torch.Tensor, xc: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor,
+          neg_a: torch.Tensor, h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The recurrence over time chunks from state ``h`` (B,di,ds):
+    (y (B,S,di), the last state)."""
     ys = []
-    for lo in range(0, s, SSM_CHUNK):
+    for lo in range(0, dt.shape[1], SSM_CHUNK):
         hi = lo + SSM_CHUNK
         dtc = dt[:, lo:hi]
         decay = (dtc[..., None] * neg_a).exp_()                 # (B,q,di,ds)
@@ -114,7 +109,31 @@ def apply_mamba_prefill(cfg: ArchConfig, p: Dict, x: torch.Tensor,
                 hs[:, i].addcmul_(decay[:, i], hs[:, i - 1] if i else h)
         ys.append((hs @ c_mat[:, lo:hi, :, None])[..., 0])     # (B,q,di)
         h = hs[:, -1].clone()
-    out = _out(p, torch.cat(ys, dim=1), xc, z, x.dtype)
+    return torch.cat(ys, dim=1), h
+
+
+def apply_mamba_prefill(cfg: ArchConfig, p: Dict, x: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+    """The prompt through one Mamba mixer: (out (B,S,d), decode state
+    {h (B,di,ds), conv (B,dc-1,di)}). A left-padded row's real positions
+    and final state match its unpadded run."""
+    b, s, _ = x.shape
+    xi, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    xi = shard(xi, "batch", "seq", "ssm_inner")
+    if mask is not None:
+        xi = torch.where(mask[..., None], xi, 0.0)
+    xc = F.silu(causal_conv(p, xi) + p["conv_b"])
+    dt, b_mat, c_mat = _dt_b_c(cfg, p, xc)
+    if mask is not None:
+        dt = torch.where(mask[..., None], dt, 0.0)
+    neg_a = -torch.exp(p["A_log"])                              # (di, ds)
+    h0 = x.new_zeros((b, cfg.ssm_d_inner, cfg.ssm_d_state), dtype=torch.float32)
+    # Independent per row and per channel: on a mesh each rank scans its
+    # own rows and its own d_inner channels.
+    y, h = batch_local(_scan, (dt, xc, b_mat, c_mat, neg_a, h0),
+                       ((0, 2), (0, 2), 0, 0, (None, 0), (0, 1)),
+                       out=[(0, 2), (0, 1)], inner="ssm_inner")
+    out = _out(p, y, xc, z, x.dtype)
     return out, {"h": h, "conv": conv_tail(xi, cfg.ssm_d_conv)}
 
 
@@ -138,6 +157,7 @@ def apply_mamba_decode(cfg: ArchConfig, p: Dict, x: torch.Tensor,
     """One token x (B,1,d) through one Mamba mixer; the cache's state is
     replaced by the new one."""
     xi, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    xi = shard(xi, "batch", "seq", "ssm_inner")
     window = torch.cat([cache["conv"], xi], dim=1)              # (B, dc, di)
     xc = F.silu(conv_step(p, window) + p["conv_b"])
     dt, b_mat, c_mat = _dt_b_c(cfg, p, xc)                      # (B,1,·)

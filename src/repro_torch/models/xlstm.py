@@ -34,10 +34,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import causal_conv, conv_step, conv_tail, dense_init
+from repro_torch.models.sharding_ctx import batch_local, gather_tree, get_rule, merge, shard
 
 MLSTM_CHUNK = 256
 SLSTM_SEG = 64
@@ -56,6 +58,16 @@ def prefill_width(s: int) -> int:
 # ---------------------------------------------------------------------------
 # mLSTM
 # ---------------------------------------------------------------------------
+
+def _maybe_gather(p: Dict) -> Dict:
+    """ZeRO-3 gathered-weights mode (rule ``xlstm_gather_params``): keep
+    the params' storage sharded but compute with replicated weights and
+    fully local activations, where every consumer of the d_inner-sharded
+    stream would otherwise pay an activation-sized reduction."""
+    if get_rule("xlstm_gather_params"):
+        return gather_tree(p)
+    return p
+
 
 def _blockdiag_init(gen: torch.Generator, h: int, dh: int) -> torch.Tensor:
     return torch.stack([dense_init(gen, dh, dh) for _ in range(h)])
@@ -93,7 +105,12 @@ def _mlstm_gates(p: Dict, xc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
 
 
 def _mlstm_qkv(cfg: ArchConfig, p: Dict, xc: torch.Tensor, xv: torch.Tensor):
-    """Block-diagonal per-head projections: (B,T,di) -> (B,T,H,dh) each."""
+    """Block-diagonal per-head projections: (B,T,di) -> (B,T,H,dh) each;
+    on a mesh on each rank's rows (``batch_local``)."""
+    if isinstance(xc, DTensor):
+        w = {key: p[key] for key in ("wq", "wk", "wv")}
+        return batch_local(lambda w_, c, v_: _mlstm_qkv(cfg, w_, c, v_), (w, xc, xv),
+                           (None, 0, 0))
     b, t, di = xc.shape
     h = cfg.xlstm_n_heads
     dh = di // h
@@ -201,6 +218,8 @@ def _mlstm_front(p: Dict, x: torch.Tensor, conv_state: Optional[torch.Tensor] = 
     xi, z = (x @ p["up_proj"]).chunk(2, dim=-1)
     if mask is not None:
         xi = torch.where(mask[..., None], xi, 0.0)
+    if not get_rule("xlstm_gather_params"):
+        xi = shard(xi, "batch", "seq", "ssm_inner")
     if conv_state is not None:
         window = torch.cat([conv_state, xi], dim=1)             # (B, dc, di)
         xc = F.silu(conv_step(p, window) + p["conv_b"])
@@ -214,6 +233,7 @@ def apply_mlstm_prefill(cfg: ArchConfig, p: Dict, x: torch.Tensor,
     """The prompt through one mLSTM mixer: (out (B,T,d), decode state
     {C, n, m, conv}). Pad steps contribute nothing to the recurrence; real
     positions and the final state match the row's unpadded run."""
+    p = _maybe_gather(p)
     b, t, _ = x.shape
     xc, xv, z, _ = _mlstm_front(p, x, mask=mask)
     q, k, v = _mlstm_qkv(cfg, p, xc, xv)
@@ -221,8 +241,8 @@ def apply_mlstm_prefill(cfg: ArchConfig, p: Dict, x: torch.Tensor,
     if mask is not None:
         log_i = torch.where(mask[..., None], log_i, NEG_INF)
         log_f = torch.where(mask[..., None], log_f, 0.0)
-    h, state = mlstm_chunkwise(q, k, v, log_i, log_f)
-    h = h.reshape(b, t, -1).to(x.dtype) + p["skip"] * xc
+    h, state = batch_local(mlstm_chunkwise, (q, k, v, log_i, log_f), (0,) * 5)
+    h = merge(h, 2).to(x.dtype) + p["skip"] * xc
     out = (h * F.silu(z)) @ p["down_proj"]
     return out, {**state, "conv": conv_tail(xv, p["conv_w"].shape[0])}
 
@@ -250,13 +270,15 @@ def apply_mlstm_decode(cfg: ArchConfig, p: Dict, x: torch.Tensor,
                        cache: Dict) -> Tuple[torch.Tensor, Dict]:
     """One token x (B,1,d) through one mLSTM mixer; the cache's state is
     replaced by the new one."""
+    p = _maybe_gather(p)
     b = x.shape[0]
     xc, xv, z, conv_state = _mlstm_front(p, x, cache["conv"])
     q, k, v = _mlstm_qkv(cfg, p, xc, xv)
     log_i, log_f = _mlstm_gates(p, xc)
-    h, state = mlstm_step(q[:, 0].float(), k[:, 0].float(), v[:, 0].float(),
-                          log_i[:, 0], log_f[:, 0], cache)
-    h = h.reshape(b, 1, -1).to(x.dtype) + p["skip"] * xc
+    h, state = batch_local(mlstm_step, (q[:, 0].float(), k[:, 0].float(), v[:, 0].float(),
+                                        log_i[:, 0], log_f[:, 0],
+                                        {key: cache[key] for key in "Cnm"}), (0,) * 6)
+    h = merge(h, 1)[:, None].to(x.dtype) + p["skip"] * xc
     out = (h * F.silu(z)) @ p["down_proj"]
     cache.update(state, conv=conv_state)
     return out, cache
@@ -350,6 +372,12 @@ def _slstm_steps(wx: torch.Tensor, r: torch.Tensor, cnmh: torch.Tensor,
     return cnmh, torch.stack(hs)
 
 
+def _slstm_rows(wx, r, cnmh, keep):
+    """:func:`_slstm_steps`, on a mesh on each rank's batch rows
+    (``batch_local``; the batch is dim 2 of the stacked inputs)."""
+    return batch_local(_slstm_steps, (wx, r, cnmh, keep), (2, None, 2, 3), out=2)
+
+
 def _slstm_run(cfg: ArchConfig, p: Dict, x: torch.Tensor, mask: Optional[torch.Tensor],
                segments: bool) -> Tuple[torch.Tensor, Dict]:
     """(out (B,T,d), final state) of one sLSTM mixer. With ``segments``, a
@@ -357,6 +385,7 @@ def _slstm_run(cfg: ArchConfig, p: Dict, x: torch.Tensor, mask: Optional[torch.T
     segment under ``torch.utils.checkpoint``, the reference's two-level
     scan: autograd keeps the carries only at segment boundaries and
     recomputes the steps within a segment."""
+    p = _maybe_gather(p)
     b, t, d = x.shape
     nh = cfg.xlstm_n_heads
     wx = _wx_heads(x @ p["w"] + p["b"], nh)                 # hoisted: (T,H,B,4dh)
@@ -369,13 +398,13 @@ def _slstm_run(cfg: ArchConfig, p: Dict, x: torch.Tensor, mask: Optional[torch.T
         hs = []
         for lo in range(0, t, SLSTM_SEG):
             seg = slice(lo, lo + SLSTM_SEG)
-            cnmh, h = checkpoint(_slstm_steps, wx[seg], r, cnmh,
+            cnmh, h = checkpoint(_slstm_rows, wx[seg], r, cnmh,
                                  None if keep is None else keep[seg], use_reentrant=False)
             hs.append(h)
         h_seq = torch.cat(hs)
     else:
-        cnmh, h_seq = _slstm_steps(wx, r, cnmh, keep)
-    out = _slstm_ffn(p, h_seq.permute(2, 0, 1, 3).reshape(b, t, d).to(x.dtype))
+        cnmh, h_seq = _slstm_rows(wx, r, cnmh, keep)
+    out = _slstm_ffn(p, merge(h_seq.permute(2, 0, 1, 3), 2).to(x.dtype))
     return out, {key: _state_rows(s) for key, s in zip("cnmh", cnmh)}
 
 
@@ -400,6 +429,7 @@ def apply_slstm_decode(cfg: ArchConfig, p: Dict, x: torch.Tensor,
     """One token x (B,1,d) through one sLSTM mixer; the cache's state is
     replaced by the new one. The four recurrent products run apart (no
     per-step copy of the stacked R)."""
+    p = _maybe_gather(p)
     nh = cfg.xlstm_n_heads
     wx = _wx_heads(x @ p["w"] + p["b"], nh)[0]              # (H, B, 4·dh)
     c, n, m, h = (_state_heads(cache[key], nh) for key in "cnmh")

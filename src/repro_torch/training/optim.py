@@ -57,7 +57,9 @@ def cosine_lr(cfg: AdamConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def adam_init(cfg: AdamConfig, params: Any) -> AdamState:
-    zeros = lambda p: torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)  # noqa: E731
+    """Zero moments shaped and placed as the params: a DTensor param gets
+    a DTensor moment with its placements (ZeRO-3: moments mirror params)."""
+    zeros = lambda p: torch.zeros_like(p, dtype=cfg.moment_dtype)  # noqa: E731
     device = next(iter(flatten_with_paths(params).values())).device
     return AdamState(step=torch.zeros((), dtype=torch.int32, device=device),
                      m=tree_map(zeros, params), v=tree_map(zeros, params))

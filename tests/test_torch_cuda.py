@@ -4,7 +4,8 @@ recurrent members (xlstm-1.3b, the jamba hybrid), the last three
 configs (musicgen-large, llama4-maverick, cross attention with
 llama-3.2-vision and its stub media), the Mamba scan's gradient, the
 online adaptation and cascade layers, the kernel-dispatch profiler, the
-socket fleet's two processes, and an LM train step, on the card.
+socket fleet's two processes, an LM train step, and the train, prefill
+and decode steps on a 1x1 NCCL mesh, on the card.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (marker ``cuda``) and
 skips without one: a CUDA kernel has no CPU mode. The file imports no JAX,
@@ -874,3 +875,66 @@ def test_train_step_on_the_card_equals_the_cpu(cuda, name):
     diff = torch.cat([(new_g[k] - new_c[k]).abs().flatten() for k in new_c])
     assert float(diff.max()) <= TRAIN_ADAM.lr
     assert float((diff > 1e-6).float().mean()) <= 1e-4
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A 1x1 mesh over NCCL on the card; its process group is destroyed
+    after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    assert not dist.is_initialized()
+    mesh = make_debug_mesh(1, 1)
+    yield mesh
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("name", ["qwen3-0.6b", "granite-moe-1b-a400m"])
+def test_mesh_steps_on_an_nccl_1x1_mesh_equal_the_plain_steps(nccl_mesh, cuda, name):
+    """The train step's loss and gradients, the prefill logits and two
+    decode steps' logits at smoke size, with DTensor params, moments,
+    batch and caches on a 1x1 NCCL mesh against the plain steps on the
+    card: the loss within 1e-6 relative, each gradient leaf within 1e-5
+    of its largest magnitude, logits within 1e-5 (on a mesh the cross
+    entropy is vocab-parallel and the MoE dispatches by one-hot einsums,
+    so sums run in another order)."""
+    from repro_torch.common.tree import flatten_with_paths
+    from repro_torch.data.lm_data import MarkovCorpus
+    from repro_torch.launch import sharding, steps
+    from repro_torch.training.optim import adam_init
+
+    mesh = nccl_mesh
+    cfg = get_smoke_config(name)
+    params = lm.init_lm(torch.Generator("cuda").manual_seed(0), cfg)
+    tok, lab = (torch.from_numpy(a).to(cuda) for a in
+                next(MarkovCorpus(cfg.vocab_size, seed=0).batches(4, 64, seed=1)))
+    batch = {"tokens": tok, "labels": lab}
+    dparams = sharding.distribute_params(cfg, mesh, tree_map(torch.clone, params))
+    loss_p, grads_p = steps.make_grad_step(cfg)(params, batch)
+    loss_m, grads_m = steps.make_grad_step(cfg, mesh)(dparams, sharding.distribute_batch(mesh, batch))
+    assert abs(float(loss_m) - float(loss_p)) <= 1e-6 * abs(float(loss_p))
+    got = flatten_with_paths(grads_m)
+    for key, want in flatten_with_paths(grads_p).items():
+        err = float((got[key].full_tensor() - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), (key, err)
+    loss, dparams, state = steps.make_train_step(cfg, mesh)(
+        dparams, adam_init(steps.TRAIN_ADAM, dparams), sharding.distribute_batch(mesh, batch))
+    assert np.isfinite(float(loss)) and float(state.step) == 1
+
+    caches_p = lm.init_caches(cfg, 4, 68, cuda)
+    caches_m = sharding.distribute_caches(cfg, mesh, lm.init_caches(cfg, 4, 68, cuda))
+    dparams = sharding.distribute_params(cfg, mesh, tree_map(torch.clone, params))
+    out_p, caches_p = steps.make_prefill_step(cfg)(params, {"tokens": tok, "caches": caches_p})
+    out_m, caches_m = steps.make_prefill_step(cfg, mesh)(
+        dparams, {**sharding.distribute_batch(mesh, {"tokens": tok}), "caches": caches_m})
+    torch.testing.assert_close(out_m.full_tensor(), out_p, rtol=0, atol=1e-5)
+    nxt = lab[:, -1:]
+    for i in range(2):
+        out_p, caches_p = steps.make_decode_step(cfg)(
+            params, {"token": nxt, "caches": caches_p, "pos": 64 + i})
+        out_m, caches_m = steps.make_decode_step(cfg, mesh)(
+            dparams, {"token": sharding.distribute_batch(mesh, {"t": nxt})["t"],
+                      "caches": caches_m, "pos": 64 + i})
+        torch.testing.assert_close(out_m.full_tensor(), out_p, rtol=0, atol=1e-5)

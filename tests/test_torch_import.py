@@ -60,6 +60,9 @@ REQUIRED = {
     "repro_torch.launch.serve", "repro_torch.serving.scheduler",
     "repro_torch.launch.train", "repro_torch.launch.steps", "repro_torch.data.lm_data",
     "repro_torch.common.dtypes",
+    "repro_torch.launch.mesh", "repro_torch.launch.sharding", "repro_torch.launch.dryrun",
+    "repro_torch.launch.hlo_analysis", "repro_torch.models.sharding_ctx",
+    "repro_torch.models.runtime_flags", "repro_torch.configs.shapes",
 }
 
 

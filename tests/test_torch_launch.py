@@ -165,20 +165,45 @@ def test_train_step_updates_in_place_with_the_functional_numbers():
 def test_train_step_on_a_zeros_batch_and_the_mesh_refusal():
     """The intent of the reference's own failing
     ``test_launch.py::TestSmallMeshEndToEnd::test_train_step_jits_on_1x1_mesh``:
-    a zeros (4, 32) batch on smoke qwen3 gives a finite loss. A mesh is
-    refused: multi-device placement is item 12b."""
+    a zeros (4, 32) batch on smoke qwen3 gives a finite loss, unsharded and
+    on a 1x1 gloo mesh (its process group destroyed after). What the port
+    still refuses: a mesh that is not a ``DeviceMesh`` or lacks the
+    ``data``/``model`` dims, and a pool sharded over a mesh
+    (``distributed/shard.py::shard_pool`` takes none; serving on a mesh is
+    ROADMAP Queue 1)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.shard import shard_pool
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import sharding
+
     cfg = get_smoke_config(QWEN)
-    params = lm.init_lm(torch.Generator().manual_seed(0), cfg)
-    opt = adam_init(steps.TRAIN_ADAM, params)
     zeros = torch.zeros((4, 32), dtype=torch.int32)
-    loss, params, opt = steps.make_train_step(cfg)(params, opt, {"tokens": zeros,
-                                                                 "labels": zeros})
+    params = lm.init_lm(torch.Generator().manual_seed(0), cfg)
+    loss, params, opt = steps.make_train_step(cfg)(params, adam_init(steps.TRAIN_ADAM, params),
+                                                   {"tokens": zeros, "labels": zeros})
     assert np.isfinite(float(loss))
-    for make in (steps.make_train_step, steps.make_prefill_step, steps.make_decode_step):
-        with pytest.raises(NotImplementedError, match="12b"):
-            make(cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="12b"):
-        train.train_loop(cfg, steps=1, batch=2, seq=8, mesh=object(), device="cpu")
+    mesh = mesh_mod.make_debug_mesh(1, 1, device="cpu")
+    try:
+        params = sharding.distribute_params(
+            cfg, mesh, lm.init_lm(torch.Generator().manual_seed(0), cfg))
+        batch = sharding.distribute_batch(mesh, {"tokens": zeros, "labels": zeros})
+        mesh_loss, _, _ = steps.make_train_step(cfg, mesh)(
+            params, adam_init(steps.TRAIN_ADAM, params), batch)
+        assert np.isfinite(float(mesh_loss))
+        flat = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+        for make in (steps.make_train_step, steps.make_prefill_step, steps.make_decode_step):
+            with pytest.raises(TypeError, match="DeviceMesh"):
+                make(cfg, mesh=object())
+            with pytest.raises(ValueError, match="mesh dims"):
+                make(cfg, mesh=flat)
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            train.train_loop(cfg, steps=1, batch=2, seq=8, mesh=object(), device="cpu")
+        with pytest.raises(TypeError, match="mesh"):
+            shard_pool([], 0, 1, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_prefill_and_decode_steps_match_the_reference():
