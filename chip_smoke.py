@@ -194,12 +194,29 @@ Phases (any failure raises and exits non-zero before the last line):
      FLOPs within 1% of the real step's ``FlopCounterMode`` count, beside
      6·N·T; its peak beside the allocator's), and qwen3-0.6b train_4k on
      the fake 16x16 production mesh (its record's figures).
+ 22. mesh_serve: the default pool at published size (``build_engine``)
+     serves 8 seeded ragged requests through ``RoutedEngine.serve`` on the
+     plain placement, is laid out by ``shard_pool(pool, 0, 1, mesh=...)`` on
+     a 1x1 NCCL mesh (DTensor params) and serves them twice more: tokens
+     and $ equal (a request excused only where it parts at a top-2 logit
+     gap below 1e-5 of the logits' scale, printed), the allocator's peak
+     within 2 GiB of the pool's bytes, each member's prefill and decode
+     step (host ms, device busy, idle share) on both layouts and their
+     ratio, timed on ``member.generate`` itself at max_new 1 and 8; ``router_xattn`` once per scoring call, held to its plain
+     version (1e-5); ``pairwise_l2`` not launched.
+ 23. scripts: the port's ten entry scripts (``examples/torch_*.py``,
+     ``tools/torch_*.py``) as child processes on the card, four at a time,
+     ``torch_trace_export`` reading the trace ``torch_obs_smoke`` wrote:
+     each exits 0 and prints its OK line; their walls, and the launches in
+     their own processes.
 Each path (serve, moe, trace, lookup, online, cascade, obs, fleet, socket,
-attn_long, recurrent, multimodal, lm_train, mesh) runs with every kernel's launch count set to 0 just
+attn_long, recurrent, multimodal, lm_train, mesh, mesh_serve, scripts) runs
+with every kernel's launch count set to 0 just
 before it and read just after; a kernel of the path that was not launched
 fails the run (the socket path launches in its child processes, so its counts
 are the profiler's kernel spans in its merged trace, one per launch on the
-card, and this process's own counts must stay 0) (the cascade's ``attn-ens`` router scores on the plain
+card, and this process's own counts must stay 0; the scripts' counts are
+the ones each script's process prints at exit) (the cascade's ``attn-ens`` router scores on the plain
 predictor, as the reference's does, so only ``pairwise_l2`` runs there;
 no kernel of the port is on the LM training path or the mesh path, so
 both counts must stay 0 there).
@@ -847,13 +864,14 @@ def decode_step_bound(member, b, s_kv, experts_read) -> tuple:
             n_bytes)
 
 
-def greedy_margins(cfg, params, tok, mask, max_new, media=None):
+def greedy_margins(cfg, params, tok, mask, max_new, media=None, with_scale=False):
     """``lm.greedy_generate``'s loop, also keeping each step's gap between
-    the two largest logits: (tokens (B, max_new), gaps (B, max_new)) numpy."""
+    the two largest logits: (tokens (B, max_new), gaps (B, max_new)) numpy;
+    ``with_scale`` adds each step's largest |logit| (B, max_new)."""
     from repro_torch.models import lm
 
     b, s = tok.shape
-    toks, gaps = [], []
+    toks, gaps, scales = [], [], []
     with torch.inference_mode():
         caches = lm.init_caches(cfg, b, s + max_new, "cuda")
         logits, caches = lm.apply_lm_prefill(cfg, params, tok, caches, attn_mask=mask,
@@ -864,9 +882,11 @@ def greedy_margins(cfg, params, tok, mask, max_new, media=None):
             lg = logits[:, -1, :cfg.vocab_size]
             top2 = torch.topk(lg, 2, dim=-1).values
             gaps.append(top2[:, 0] - top2[:, 1])
+            scales.append(lg.abs().amax(dim=-1))
             toks.append(torch.argmax(lg, dim=-1)[:, None])
-    return (torch.cat(toks, 1).to(torch.int32).cpu().numpy(),
-            torch.stack(gaps, 1).cpu().numpy())
+    out = (torch.cat(toks, 1).to(torch.int32).cpu().numpy(),
+           torch.stack(gaps, 1).cpu().numpy())
+    return out + (torch.stack(scales, 1).cpu().numpy(),) if with_scale else out
 
 
 def phase_moe(engine, rx, pl2) -> dict:
@@ -3636,6 +3656,267 @@ def phase_mesh(rx, pl2) -> dict:
             "dryrun_1x1": one, "production": prod, "launches": launches}
 
 
+# [mesh_serve]: the reference's default pool at published size served on the
+# plain placement, then laid out by shard_pool on a 1x1 NCCL mesh (DTensor
+# params) and served again: the same tokens and $, each member's prefill and
+# decode step on both layouts.
+MESH_SERVE_GAP = 1e-5             # a parting request's top-2 gap, of the logits' scale
+MESH_SERVE_PEAK_MARGIN_GIB = 2.0
+
+
+def _layout_profile(member, tok, mask) -> dict:
+    """``member.generate`` itself, the loop serving runs on the member's
+    layout, at ``max_new`` 1 (the prefill and its argmax) and MAX_NEW: host
+    ms ending in a sync (the median of three calls) and device busy ms from
+    torch.profiler; a decode step is the difference over MAX_NEW - 1
+    steps. A warm-up call runs first (DTensor decides its shardings on a
+    shape's first call)."""
+    def run(n):
+        return lambda: member.generate(tok, n, attn_mask=mask)
+
+    run(MAX_NEW)()
+    host = {n: float(np.median([_synced(run(n))[0] for _ in range(3)])) * 1e3
+            for n in (1, MAX_NEW)}
+    busy = {n: profile_device(run(n))[0] for n in (1, MAX_NEW)}
+    step = (host[MAX_NEW] - host[1]) / (MAX_NEW - 1)
+    step_busy = (busy[MAX_NEW] - busy[1]) / (MAX_NEW - 1)
+    return {"prefill_ms": host[1], "prefill_busy_ms": busy[1],
+            "prefill_idle": max(0.0, 1 - busy[1] / host[1]),
+            "decode_step_ms": step, "decode_busy_ms": step_busy,
+            "decode_idle": max(0.0, 1 - step_busy / step)}
+
+
+def phase_mesh_serve(rx, pl2) -> dict:
+    """The default pool at published size served plainly and on a 1x1 NCCL
+    mesh after ``shard_pool(..., mesh=...)``: tokens and $ equal (a request
+    excused only where it parts at a top-2 logit gap below 1e-5 of the
+    logits' scale), the allocator's peak within 2 GiB of the pool's bytes,
+    ``router_xattn`` launched once per scoring call and held to its plain
+    version, ``pairwise_l2`` not launched."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.shard import pool_param_bytes, shard_pool
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.serve import build_engine, synthetic_requests
+    from repro_torch.serving.engine import pad_prompts, prompt_pad_mask
+
+    t0 = time.perf_counter()
+    engine = build_engine(POOL, seed=0)
+    pool_gib = pool_param_bytes(engine.pool) / 2**30
+    log(f"[mesh_serve] build_engine {POOL}: {time.perf_counter() - t0:.2f} s, pool "
+        f"{pool_gib:.2f} GiB of params")
+    vocab = min(m.cfg.vocab_size for m in engine.pool)
+    texts, prompts = synthetic_requests(N_REQUESTS, vocab, seed=0)
+    mesh = make_debug_mesh(1, 1)
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"mesh process group {dist.get_backend()} of {dist.get_world_size()}")
+    try:
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        rx.router_xattn_cuda.launches = 0
+        pl2.pairwise_l2_cuda.launches = 0
+        scoring_calls = 0
+        t_plain, plain = _synced(lambda: engine.serve(texts, prompts, max_new=MAX_NEW))
+        scoring_calls += 1
+        choices = plain["choices"]
+        gaps, profiles = {}, {}
+        for mi, member in enumerate(engine.pool):
+            tok = pad_prompts(prompts, member.cfg).cuda()
+            mask = prompt_pad_mask(prompts, member.cfg).cuda()
+            toks, gap, scale = greedy_margins(member.cfg, member.params, tok, mask, MAX_NEW,
+                                              media=member.batch_media(len(prompts)),
+                                              with_scale=True)
+            gaps[mi] = (toks, gap, scale)
+            profiles[member.name] = {"plain": _layout_profile(member, tok, mask)}
+        t_shard, owned = _synced(lambda: shard_pool(engine.pool, 0, 1, mesh=mesh))
+        check(owned == [0, 1, 2], f"shard_pool owned {owned}")
+        check(pool_param_bytes(engine.pool) / 2**30 == pool_gib,
+              "pool_param_bytes reads the whole pool on a 1x1 mesh")
+        t_mesh, meshed = _synced(lambda: engine.serve(texts, prompts, max_new=MAX_NEW))
+        t_warm, warm = _synced(lambda: engine.serve(texts, prompts, max_new=MAX_NEW))
+        scoring_calls += 2
+        # Every member generates every request on the mesh (no scoring).
+        member_toks = {mi: np.stack(engine.generate_member(mi, prompts, max_new=MAX_NEW)[0])
+                       for mi in range(len(engine.pool))}
+        for mi, member in enumerate(engine.pool):
+            profiles[member.name]["mesh"] = _layout_profile(
+                member, pad_prompts(prompts, member.cfg).cuda(),
+                prompt_pad_mask(prompts, member.cfg).cuda())
+        launches = {"router_xattn": rx.router_xattn_cuda.launches,
+                    "pairwise_l2": pl2.pairwise_l2_cuda.launches}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        err = _kernel_vs_plain(engine, engine.embed(texts), "[mesh_serve]")
+        device_of = {m.name: str(m.device) for m in engine.pool}
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "the mesh's process group is destroyed")
+
+    check(all(d.startswith("cuda") for d in device_of.values()),
+          f"the members' shards lie on the card: {device_of}")
+    check(np.array_equal(meshed["choices"], choices)
+          and np.array_equal(warm["choices"], choices), "the same routing on both layouts")
+    def same(mi, i, want, got, what) -> bool:
+        """Whether request ``i``'s tokens on member ``mi`` agree; a part is
+        excused only at a top-2 gap below MESH_SERVE_GAP of the logits' scale."""
+        if np.array_equal(want, got):
+            return True
+        _, gap, scale = gaps[mi]
+        k = int(np.flatnonzero(want != got)[0])
+        rel = float(gap[i, k] / scale[i, k])
+        log(f"[mesh_serve] {what}: request {i} on {engine.pool[mi].name} parts at step {k}: "
+            f"top-2 gap {gap[i, k]:.3e} of a logit scale {scale[i, k]:.3e} ({rel:.2e}; "
+            f"excused below {MESH_SERVE_GAP})")
+        check(rel < MESH_SERVE_GAP, f"{what}: request {i} parts at a gap of {rel:.2e}")
+        return False
+
+    parted = []
+    for i, (a, b, c) in enumerate(zip(plain["outputs"], meshed["outputs"], warm["outputs"])):
+        mi = int(choices[i])
+        check(np.array_equal(b, c), f"request {i}: the two mesh serves differ")
+        check(np.array_equal(gaps[mi][0][i], a), f"request {i}: greedy_margins against serve")
+        if not same(mi, i, a, b, "serve"):
+            parted.append(i)
+    member_parted = sum(not same(mi, i, gaps[mi][0][i], toks[i], "generate_member")
+                        for mi, toks in member_toks.items() for i in range(len(prompts)))
+    min_gap = min(float((g / sc).min()) for _, g, sc in gaps.values())
+    check(plain["total_cost"] == meshed["total_cost"] or parted,
+          f"$ {meshed['total_cost']} on the mesh vs {plain['total_cost']} plain")
+    log(f"[mesh_serve] {N_REQUESTS} requests, prompts {min(map(len, prompts))}-"
+        f"{max(map(len, prompts))} tokens, max_new {MAX_NEW}, counts "
+        + ", ".join(f"{m.name}={int(c)}" for m, c in zip(engine.pool,
+                                                         plain["per_member_counts"]))
+        + f": served tokens equal in {N_REQUESTS - len(parted)} of {N_REQUESTS}, every "
+        f"member's generate_member in {len(member_toks) * N_REQUESTS - member_parted} of "
+        f"{len(member_toks) * N_REQUESTS} (smallest top-2 gap over every member, request and "
+        f"step {min_gap:.2e} of the logits' scale); $ {meshed['total_cost']:.9g} on the mesh "
+        f"vs {plain['total_cost']:.9g} plain")
+    log(f"[mesh_serve] serve wall: plain {t_plain * 1e3:.2f} ms; shard_pool "
+        f"{t_shard * 1e3:.2f} ms; mesh first {t_mesh * 1e3:.2f} ms, again {t_warm * 1e3:.2f} "
+        f"ms ({t_warm / t_plain:.3f} of plain)")
+    ratios = {}
+    for name, p in profiles.items():
+        for tag in ("plain", "mesh"):
+            o = p[tag]
+            log(f"[mesh_serve] {name} B={N_REQUESTS} {tag} generate: prefill (max_new 1) "
+                f"{o['prefill_ms']:.2f} ms (busy {o['prefill_busy_ms']:.2f}, idle "
+                f"{o['prefill_idle']:.3f}), decode step "
+                f"{o['decode_step_ms']:.2f} ms (busy {o['decode_busy_ms']:.2f}, idle "
+                f"{o['decode_idle']:.3f})")
+        ratios[name] = p["mesh"]["decode_step_ms"] / p["plain"]["decode_step_ms"]
+        log(f"[mesh_serve] {name}: mesh / plain decode step host {ratios[name]:.3f}, device "
+            f"busy {p['mesh']['decode_busy_ms'] / p['plain']['decode_busy_ms']:.3f}; prefill "
+            f"host {p['mesh']['prefill_ms'] / p['plain']['prefill_ms']:.3f}")
+    check(peak_gib <= pool_gib + MESH_SERVE_PEAK_MARGIN_GIB,
+          f"allocator peak {peak_gib:.2f} GiB vs pool {pool_gib:.2f} GiB + "
+          f"{MESH_SERVE_PEAK_MARGIN_GIB}")
+    log(f"[mesh_serve] allocator peak {peak_gib:.2f} GiB for {pool_gib:.2f} GiB of params "
+        f"(+{peak_gib - pool_gib:.2f}, limit +{MESH_SERVE_PEAK_MARGIN_GIB})")
+    check(launches == {"router_xattn": scoring_calls, "pairwise_l2": 0},
+          f"[mesh_serve] launches {launches} for {scoring_calls} scoring calls")
+    log(f"[mesh_serve] launches on the path: {launches} ({scoring_calls} scoring calls); "
+        f"router_xattn vs the plain predictor after the mesh serves: max |err| {err:.3g}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "profiles": profiles, "decode_ratio": ratios,
+            "peak_gib": peak_gib, "pool_gib": pool_gib, "parted": parted,
+            "member_parted": member_parted, "max_abs_err": err}
+
+
+# [scripts]: the port's ten entry scripts as child processes on the card,
+# each run by a wrapper that prints its process's kernel launches at exit
+# (a socket follower's are its own and not counted). Sizes cut from the
+# scripts' defaults are listed in PERF.md section 4.
+SCRIPTS_DIR = os.path.join(ROOT, "build", "scripts")
+SCRIPTS_TIMEOUT_S = 300
+SCRIPT_RUNS = (   # (script, arguments, the line it prints when it passes)
+    ("examples/torch_quickstart.py", (), "oracle R2 "),
+    ("examples/torch_reward_analysis.py", (), "  gpt-4 "),
+    ("examples/torch_routed_serving.py", (), "   governor: final lambda "),
+    ("examples/torch_train_lm.py",
+     ("--checkpoint", os.path.join(SCRIPTS_DIR, "lm100m.npz")), "greedy sample: "),
+    ("tools/torch_serving_smoke.py", (), "serving smoke: OK"),
+    ("tools/torch_online_smoke.py", (), "online smoke: OK"),
+    ("tools/torch_cascade_smoke.py", (), "cascade smoke: OK"),
+    ("tools/torch_obs_smoke.py", ("--out-dir", os.path.join(SCRIPTS_DIR, "obs_smoke")),
+     "obs smoke: OK"),
+    ("tools/torch_trace_export.py", (os.path.join(SCRIPTS_DIR, "obs_smoke", "trace.json"),),
+     "valid chrome trace, well-formed span tree"),
+    ("tools/torch_distributed_smoke.py",
+     ("--out-dir", os.path.join(SCRIPTS_DIR, "distributed_smoke")), "distributed smoke: PASS"),
+)
+# Runs one script as __main__ and prints its process's launch counts at exit.
+SCRIPT_WRAPPER = (
+    "import atexit, json, runpy, sys\n"
+    "from repro_torch.kernels.pairwise_l2 import pairwise_l2_cuda\n"
+    "from repro_torch.kernels.router_xattn import router_xattn_cuda\n"
+    "atexit.register(lambda: print('[launches] ' + json.dumps({\n"
+    "    'router_xattn': router_xattn_cuda.launches,\n"
+    "    'pairwise_l2': pairwise_l2_cuda.launches}), flush=True))\n"
+    "sys.argv = sys.argv[1:]\n"
+    "runpy.run_path(sys.argv[0], run_name='__main__')\n")
+
+
+def _script_child(script, args, ok_line) -> dict:
+    """One script as a child process on the card (its own session, so a
+    timeout kills whatever it started too): its exit code, OK line, wall
+    and launches; its output in build/scripts/<name>.log."""
+    import signal
+
+    name = os.path.splitext(os.path.basename(script))[0]
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"), "OMP_NUM_THREADS": "2",
+           "PYTHONUNBUFFERED": "1"}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", SCRIPT_WRAPPER, script, *args], cwd=ROOT,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=SCRIPTS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(SCRIPTS_DIR, name + ".log"), "w") as fh:
+        fh.write(out + err)
+    lines = out.splitlines()
+    check(proc.returncode == 0, f"[scripts] {script} exited {proc.returncode} after "
+          f"{wall:.1f} s: {out[-1500:]}{err[-2500:]}")
+    ok = [ln for ln in lines if ln.startswith(ok_line)]
+    check(bool(ok), f"[scripts] {script} printed no line starting {ok_line!r}")
+    launches = json.loads([ln for ln in lines if ln.startswith("[launches] ")][-1].split(" ", 1)[1])
+    own_wall = [ln.strip() for ln in lines if " wall " in ln and ln is not ok[-1]]
+    log(f"[scripts] {script} {' '.join(args)}: exit 0 in {wall:.2f} s wall; {ok[-1].strip()}; "
+        f"launches {launches}" + (f"; its own timing: {own_wall[-1]}" if own_wall else ""))
+    return {"wall_s": wall, "launches": launches}
+
+
+def phase_scripts(rx, pl2) -> dict:
+    """The ten scripts as child processes on the card, four at a time
+    (``torch_trace_export`` after ``torch_obs_smoke``, whose trace it reads)."""
+    os.makedirs(SCRIPTS_DIR, exist_ok=True)
+    rx.router_xattn_cuda.launches = 0
+    pl2.pairwise_l2_cuda.launches = 0
+    by_name = {run[0]: run for run in SCRIPT_RUNS}
+    obs, export = "tools/torch_obs_smoke.py", "tools/torch_trace_export.py"
+    with ThreadPoolExecutor(4) as pool:
+        jobs = {script: pool.submit(_script_child, *run) for script, run in by_name.items()
+                if script not in (obs, export)}
+        jobs[obs] = pool.submit(lambda: (_script_child(*by_name[obs]),
+                                         _script_child(*by_name[export])))
+        results = {script: job.result() for script, job in jobs.items()}
+    results[obs], results[export] = results[obs]
+    own = {"router_xattn": rx.router_xattn_cuda.launches,
+           "pairwise_l2": pl2.pairwise_l2_cuda.launches}
+    check(own == {"router_xattn": 0, "pairwise_l2": 0},
+          f"[scripts] this process launched {own} while its children ran")
+    launches = {k: sum(r["launches"][k] for r in results.values()) for k in own}
+    check(launches["router_xattn"] > 0 and launches["pairwise_l2"] > 0,
+          f"[scripts] the children's launches {launches}")
+    log(f"[scripts] launches in the scripts' own processes: {launches}; walls "
+        + ", ".join(f"{os.path.basename(s)} {r['wall_s']:.1f}" for s, r in results.items()))
+    return {"launches": launches, "results": results}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA GPU",
@@ -3763,6 +4044,18 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh_run = phase_mesh(rx, pl2)
     log(f"[mesh] phase wall {time.perf_counter() - t0:.2f}s")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2**30
+    check(left < 1.0, f"{left:.2f} GiB still allocated before serving on a mesh")
+    t0 = time.perf_counter()
+    mesh_serve = phase_mesh_serve(rx, pl2)
+    log(f"[mesh_serve] phase wall {time.perf_counter() - t0:.2f}s")
+
+    t0 = time.perf_counter()
+    scripts = phase_scripts(rx, pl2)
+    log(f"[scripts] phase wall {time.perf_counter() - t0:.2f}s")
     log(f"[device] all phases {time.perf_counter() - t_start:.2f}s")
 
     log(smi)
@@ -3785,12 +4078,15 @@ def main() -> int:
                              "recurrent": recurrent["launches"]["router_xattn"],
                              "multimodal": multimodal["launches"]["router_xattn"],
                              "lm_train": lm_train["launches"]["router_xattn"],
-                             "mesh": mesh_run["launches"]["router_xattn"]},
+                             "mesh": mesh_run["launches"]["router_xattn"],
+                             "mesh_serve": mesh_serve["launches"]["router_xattn"],
+                             "scripts": scripts["launches"]["router_xattn"]},
         "max_abs_err_trained": {"train": train["max_abs_err"],
                                 "table2": table2["timing"]["max_abs_err"],
                                 "online_after_swap": online["max_abs_err_after_swap"],
                                 "online_K_4": online["max_abs_err_k4"],
-                                "fleet_after_broadcast": fleet["max_abs_err"]},
+                                "fleet_after_broadcast": fleet["max_abs_err"],
+                                "mesh_serve": mesh_serve["max_abs_err"]},
         "max_abs_err": err["float32"], "max_abs_err_bf16": err["bfloat16"],
         "shape": {"B": N_REQUESTS, "K": len(POOL), "d": 20, "dq": 768},
         **timing, "library_ms": None, "at_B_256": timing_256,
@@ -3813,7 +4109,9 @@ def main() -> int:
                              "recurrent": recurrent["launches"]["pairwise_l2"],
                              "multimodal": multimodal["launches"]["pairwise_l2"],
                              "lm_train": lm_train["launches"]["pairwise_l2"],
-                             "mesh": mesh_run["launches"]["pairwise_l2"]},
+                             "mesh": mesh_run["launches"]["pairwise_l2"],
+                             "mesh_serve": mesh_serve["launches"]["pairwise_l2"],
+                             "scripts": scripts["launches"]["pairwise_l2"]},
         "max_abs_err": pl2_err["float32"], "max_abs_err_bf16": pl2_err["bfloat16"],
         **window,
         "library_call": "torch.cdist(x, c).square(), a yardstick: cdist takes a "

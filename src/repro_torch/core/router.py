@@ -222,10 +222,15 @@ class PredictiveRouter:
 
 
 def oracle_sweep(
-    quality: np.ndarray, cost: np.ndarray, lams: Sequence[float], reward: str
+    quality: np.ndarray, cost: np.ndarray, lams: Sequence[float], reward: str,
+    device: Optional[torch.device] = None,
 ) -> np.ndarray:
-    """Oracle router choices (true s, c) across the lambda grid: (L, B)."""
-    return np.stack([rewards_mod.route(reward, quality, cost, lam).numpy()
+    """Oracle router choices (true s, c) across the lambda grid: (L, B).
+    The rewards are taken on ``device`` when one is given, else on the
+    CPU from the numpy arrays as they are."""
+    if device is not None:
+        quality, cost = (torch.as_tensor(a, device=device) for a in (quality, cost))
+    return np.stack([rewards_mod.route(reward, quality, cost, lam).cpu().numpy()
                      for lam in lams])
 
 

@@ -7,12 +7,16 @@ across the worker fleet:
 
   * :func:`owner_of` — deterministic member -> worker placement
     (round-robin by index, stable under worker count);
-  * :func:`shard_pool` — on a worker process, place the *owned* members'
-    parameters on the worker's device and evict the parameters of members
-    this worker does not own (scoring never reads them; only
-    ``PoolMember.generate`` does). The reference lays owned members out
-    over a 1x1 debug mesh with its per-config sharding specs; here each
-    process holds whole members, so the layout is a device placement;
+  * :func:`shard_pool` — on a worker process, lay out the *owned*
+    members' parameters and evict the parameters of members this worker
+    does not own (scoring never reads them; only ``PoolMember.generate``
+    does). With a ``mesh`` the layout is the reference's: each owned
+    member's params become DTensors placed by the repo's per-config
+    sharding specs (:func:`repro_torch.launch.sharding.param_shardings`,
+    the tables production meshes use) and generation runs on them.
+    Without one, each owned member stays whole on the worker's device:
+    the layout the reference's default 1x1 debug mesh gives, without
+    DTensor's per-op host dispatch;
   * :class:`PoolDispatcher` — the scheduler-side indirection: a generate
     micro-batch for a member this worker owns runs locally, any other
     member's batch becomes a ``GENERATE`` message to the owning worker.
@@ -32,11 +36,14 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 
 from repro_torch.common.device import resolve_device
 from repro_torch.common.tree import flatten_with_paths, tree_map
 from repro_torch.distributed import messages as M
 from repro_torch.distributed.messages import Message
+from repro_torch.launch.sharding import distribute_params
+from repro_torch.launch.steps import check_mesh, make_generate
 
 
 def owner_of(member_idx: int, n_workers: int) -> int:
@@ -51,33 +58,59 @@ def owned_members(wid: int, n_members: int, n_workers: int) -> List[int]:
             if owner_of(mi, n_workers) == int(wid)]
 
 
-def shard_pool(pool, wid: int, n_workers: int, *, device=None,
+def shard_pool(pool, wid: int, n_workers: int, *, mesh=None, device=None,
                evict: bool = True) -> List[int]:
-    """Place this worker's owned members on ``device``; evict the rest.
+    """Lay out this worker's owned members; evict the rest.
 
-    Returns the owned member indices. ``device`` resolves as every entry
-    point's does (the CUDA card unless named). An owned member must hold
-    its params (a process that built it evicted cannot serve it). With
-    ``evict=True`` the non-owned members' params and stub media are dropped
-    (the memory win that makes this sharding real); their generates must
-    go through a :class:`PoolDispatcher`.
+    Returns the owned member indices. An owned member must hold its params
+    (a process that built it evicted cannot serve it). With ``evict=True``
+    the non-owned members' params and stub media are dropped (the memory
+    win that makes this sharding real); their generates must go through a
+    :class:`PoolDispatcher`.
+
+    With ``mesh`` (a ``DeviceMesh`` with ``data`` and ``model`` dims,
+    ``launch/mesh.py``; anything else raises as the mesh steps do) each
+    owned member's params become DTensors under the reference's
+    ``param_shardings``, one member and one leaf at a time, so no second
+    copy of the pool is ever alive; its stub media is replicated over the
+    mesh, and the member records the mesh and the greedy loop on its steps
+    (``launch/steps.py::make_generate``), which ``PoolMember.generate``
+    runs. Generation on a mesh is SPMD:
+    on a mesh of several ranks, every rank must make the same generate
+    calls, with the same prompts, in the same order, as the collectives
+    of one call pair up across ranks. Routing is seeded, so ranks that
+    serve the same texts from the same seed make the same calls; nothing
+    here broadcasts or coordinates them, as in the reference.
+
+    With ``mesh=None`` each owned member is placed whole on ``device``
+    (resolved as every entry point's: the CUDA card unless named).
     """
-    device = resolve_device(device)
+    check_mesh(mesh)
+    if mesh is None:
+        device = resolve_device(device)
     owned = []
     for mi, member in enumerate(pool):
         if owner_of(mi, n_workers) == int(wid):
             if member.params is None:
                 raise ValueError(f"worker {wid} owns pool member {mi} "
                                  f"({member.name}) but holds no params for it")
-            member.params = tree_map(
-                lambda t: t.to(device) if isinstance(t, torch.Tensor) else t,
-                member.params)
-            if member.media is not None:
-                member.media = member.media.to(device)
+            if mesh is not None:
+                distribute_params(member.cfg, mesh, member.params)
+                if member.media is not None:
+                    member.media = distribute_tensor(member.media, mesh,
+                                                     [Replicate()] * mesh.ndim)
+            else:
+                member.params = tree_map(
+                    lambda t: t.to(device) if isinstance(t, torch.Tensor) else t,
+                    member.params)
+                if member.media is not None:
+                    member.media = member.media.to(device)
+            member.mesh, member.greedy = mesh, make_generate(member.cfg, mesh)
             owned.append(mi)
         elif evict:
             member.params = None
             member.media = None
+            member.mesh, member.greedy = None, None
     return owned
 
 
@@ -140,9 +173,10 @@ class PoolDispatcher:
 
 def pool_param_bytes(pool) -> int:
     """Bytes of the params and stub media this process holds for ``pool``
-    (0 for an evicted member)."""
-    return sum(int(t.numel()) * t.element_size()
-               for member in pool for part in (member.params, member.media)
-               if part is not None
-               for t in flatten_with_paths(part).values()
-               if isinstance(t, torch.Tensor))
+    (0 for an evicted member; a DTensor counts its local shard)."""
+    local = [t.to_local() if isinstance(t, DTensor) else t
+             for member in pool for part in (member.params, member.media)
+             if part is not None
+             for t in flatten_with_paths(part).values()
+             if isinstance(t, torch.Tensor)]
+    return sum(int(t.numel()) * t.element_size() for t in local)

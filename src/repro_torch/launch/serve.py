@@ -262,17 +262,41 @@ def train_engine(pool: Sequence[PoolMember], router_path: Optional[str] = None,
             raise ValueError(f"checkpoint pool size {router.n_members} != "
                              f"serving pool size {len(pool)}")
     else:
-        data, quality, cost = synthetic_pool_traffic(pool, n=n_traffic, seed=seed)
-        tr, va, _ = data.split(seed=seed)
-        memb, centers = build_model_embeddings(data.emb[tr], quality[tr],
-                                               seed=seed, device=device)
-        qp, cp, scaler, _ = train_dual_predictors(
-            quality_kind, "attn", data.emb[tr], quality[tr], cost[tr], memb,
-            q_emb_val=data.emb[va], quality_val=quality[va], cost_val=cost[va],
-            epochs=epochs, seed=seed, device=device)
-        router = PredictiveRouter(quality_kind, "attn", qp, cp, memb, reward="R2",
-                                  cost_scaler=scaler, centroids=centers)
+        router = train_router(synthetic_pool_traffic(pool, n=n_traffic, seed=seed),
+                              seed=seed, device=device, epochs=epochs,
+                              quality_kind=quality_kind)
     return RoutedEngine(router=router, pool=pool, device=device)
+
+
+def train_router(traffic, seed: int = 0, device: Optional[DeviceLike] = None,
+                 epochs: int = 120, quality_kind: str = "attn") -> PredictiveRouter:
+    """The router :func:`train_engine` trains on ``traffic``, the
+    ``(data, quality, cost)`` of :func:`synthetic_pool_traffic`."""
+    data, quality, cost = traffic
+    tr, va, _ = data.split(seed=seed)
+    memb, centers = build_model_embeddings(data.emb[tr], quality[tr],
+                                           seed=seed, device=device)
+    qp, cp, scaler, _ = train_dual_predictors(
+        quality_kind, "attn", data.emb[tr], quality[tr], cost[tr], memb,
+        q_emb_val=data.emb[va], quality_val=quality[va], cost_val=cost[va],
+        epochs=epochs, seed=seed, device=device)
+    return PredictiveRouter(quality_kind, "attn", qp, cp, memb, reward="R2",
+                            cost_scaler=scaler, centroids=centers)
+
+
+def build_routed_engine(names: Sequence[str], *, seed: int = 0, epochs: int = 120,
+                        n_traffic: int = 1200, device: Optional[DeviceLike] = None):
+    """The reference's ``build_routed_engine`` for the example scripts: the
+    pool of reduced configs, as the reference's, with a router trained on
+    ``n_traffic`` synthetic RouterBench queries, on ``device`` (the CUDA
+    card unless named). Returns ``(engine, data, te)``: the corpus and its
+    held-out indices, which traces draw their texts from."""
+    device = resolve_device(device)
+    pool = build_pool(names, seed=seed, device=device, smoke=True)
+    traffic = synthetic_pool_traffic(pool, n=n_traffic, seed=seed)
+    router = train_router(traffic, seed=seed, device=device, epochs=epochs)
+    _, _, te = traffic[0].split(seed=seed)
+    return RoutedEngine(router=router, pool=pool, device=device), traffic[0], te
 
 
 def synthetic_requests(n: int, vocab: int, seed: int = 0, min_len: int = 16,

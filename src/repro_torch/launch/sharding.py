@@ -323,8 +323,21 @@ def _distribute(tree: Any, shardings: Any):
 
 def distribute_params(cfg: ArchConfig, mesh, params: Any):
     """``params`` (or a tree of moments mirroring them) as DTensors on
-    ``mesh`` under :func:`param_shardings`."""
-    return _distribute(params, param_shardings(cfg, mesh, params))
+    ``mesh`` under :func:`param_shardings`, placed in ``params``' own
+    dicts and lists: each tensor is replaced by its DTensor as soon as that
+    is made, so no more than one plain leaf beside its copy is ever alive
+    (a pool at published size is never held twice). Returns ``params``."""
+    _distribute_into(params, param_shardings(cfg, mesh, params))
+    return params
+
+
+def _distribute_into(tree: Any, shardings: Any) -> None:
+    for k in (list(tree) if isinstance(tree, dict) else range(len(tree))):
+        if isinstance(tree[k], torch.Tensor):
+            sh = shardings[k]
+            tree[k] = distribute_tensor(tree[k], sh.mesh, sh.placements)
+        else:
+            _distribute_into(tree[k], shardings[k])
 
 
 def distribute_caches(cfg: ArchConfig, mesh, caches: Any):

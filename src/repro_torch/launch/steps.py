@@ -14,7 +14,8 @@ nothing is installed and the steps are the one-device steps, bit for bit.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional
+import functools
+from typing import Callable, Dict, Optional
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
@@ -23,7 +24,9 @@ from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.common.tree import tree_map
 from repro_torch.configs.base import ArchConfig
-from repro_torch.launch.sharding import decode_rules, train_rules
+from repro_torch.launch.sharding import (
+    decode_rules, distribute_batch, distribute_caches, train_rules,
+)
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.sharding_ctx import logical_sharding
 from repro_torch.training.optim import AdamConfig, adam_init, adam_update, value_and_grad
@@ -31,7 +34,7 @@ from repro_torch.training.optim import AdamConfig, adam_init, adam_update, value
 TRAIN_ADAM = AdamConfig(lr=3e-4, b1=0.9, b2=0.95, weight_decay=0.1)
 
 
-def _check_mesh(mesh) -> None:
+def check_mesh(mesh) -> None:
     """Raise unless ``mesh`` is ``None`` or a ``DeviceMesh`` with ``data``
     and ``model`` dims (a ``pod`` dim may lead)."""
     if mesh is None:
@@ -46,7 +49,7 @@ def _check_mesh(mesh) -> None:
 
 
 def _rules(mesh, table, rules_override: Optional[Dict] = None):
-    _check_mesh(mesh)
+    check_mesh(mesh)
     if mesh is None:
         return None
     return {**table(mesh), **(rules_override or {})}
@@ -135,13 +138,16 @@ def make_train_step(cfg: ArchConfig, mesh=None, adam_cfg: AdamConfig = TRAIN_ADA
 
 
 def make_prefill_step(cfg: ArchConfig, mesh=None):
-    """(params, batch{tokens, caches[, media]}) -> (last_logits, caches)."""
+    """(params, batch{tokens, caches[, attn_mask][, media]}) -> (last_logits,
+    caches). ``attn_mask`` (B, S) bool marks the real tokens of a
+    left-padded batch, as serving gives it."""
     rules = _rules(mesh, train_rules)
 
     @torch.no_grad()
     def prefill_step(params, batch):
         with _placed(mesh, rules):
             return lm_mod.apply_lm_prefill(cfg, params, batch["tokens"], batch["caches"],
+                                           attn_mask=batch.get("attn_mask"),
                                            media=batch.get("media"))
 
     return prefill_step
@@ -158,6 +164,37 @@ def make_decode_step(cfg: ArchConfig, mesh=None):
                                           int(batch["pos"]))
 
     return decode_step
+
+
+def make_generate(cfg: ArchConfig, mesh=None) -> Callable:
+    """:func:`lm.greedy_generate` bound to ``cfg`` and ``mesh``: (params,
+    prompt, max_new, *, attn_mask, media) -> (B, max_new) int32 tokens.
+
+    Without a mesh it is ``greedy_generate`` itself. On a mesh its one loop
+    runs :func:`make_prefill_step` (train rules) and
+    :func:`make_decode_step` (decode rules), built here once: the prefill
+    places the caches by ``distribute_caches`` and the prompt and left-pad
+    mask by ``distribute_batch``, each decode places its token the same
+    way, and both gather the logits whole, so that every rank takes the
+    same argmax, feeds the same token to the next step and returns the
+    same tokens."""
+    if mesh is None:
+        return functools.partial(lm_mod.greedy_generate, cfg)
+    prefill_step, decode_step = make_prefill_step(cfg, mesh), make_decode_step(cfg, mesh)
+
+    def prefill(params, tokens, caches, *, attn_mask=None, media=None):
+        batch = distribute_batch(mesh, {"tokens": tokens, "attn_mask": attn_mask})
+        logits, caches = prefill_step(params, {**batch, "media": media,
+                                               "caches": distribute_caches(cfg, mesh, caches)})
+        return logits.full_tensor(), caches
+
+    def decode(params, token, caches, pos):
+        logits, caches = decode_step(params, {
+            "token": distribute_batch(mesh, {"token": token})["token"],
+            "caches": caches, "pos": pos})
+        return logits.full_tensor(), caches
+
+    return functools.partial(lm_mod.greedy_generate, cfg, prefill=prefill, decode=decode)
 
 
 def abstract_opt_state(cfg: ArchConfig, abstract_params, adam_cfg: AdamConfig = TRAIN_ADAM):

@@ -39,6 +39,7 @@ Entry points:
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -436,11 +437,12 @@ def apply_lm_decode(cfg: ArchConfig, params: Dict, token: torch.Tensor,
     return lm_logits(params["embedding"], x), caches
 
 
-@torch.inference_mode()
 def greedy_generate(cfg: ArchConfig, params: Dict, prompt: torch.Tensor,
                     max_new: int, *,
                     attn_mask: Optional[torch.Tensor] = None,
-                    media: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    media: Optional[torch.Tensor] = None,
+                    prefill: Optional[Callable] = None,
+                    decode: Optional[Callable] = None) -> torch.Tensor:
     """Greedy decoding: (B, S) prompt -> (B, max_new) int32 tokens.
 
     ``attn_mask`` (B, S) bool marks real prompt tokens of a left-padded
@@ -448,15 +450,25 @@ def greedy_generate(cfg: ArchConfig, params: Dict, prompt: torch.Tensor,
     ``media`` feeds the cross-attention layers (:func:`apply_lm_prefill`).
     The argmax runs over ``vocab_size``, not the padded vocab, and takes
     the first maximum, as ``jnp.argmax`` does.
+
+    ``prefill`` and ``decode`` stand in for :func:`apply_lm_prefill` and
+    :func:`apply_lm_decode` (the same arguments after ``cfg``, logits
+    returned as whole tensors): ``launch/steps.py::make_generate`` passes
+    a mesh's steps, so that one loop serves both layouts. The loop runs
+    under inference mode, or under ``no_grad`` with the steps given, as
+    DTensor's dispatch refuses some of the model's ops in inference mode.
     """
-    b, s = prompt.shape
-    caches = init_caches(cfg, b, s + max_new, prompt.device)
-    logits, caches = apply_lm_prefill(cfg, params, prompt, caches,
-                                      attn_mask=attn_mask, media=media)
-    tok = torch.argmax(logits[:, -1, : cfg.vocab_size], dim=-1)[:, None]
-    out = [tok]
-    for i in range(max_new - 1):
-        logits, caches = apply_lm_decode(cfg, params, tok, caches, s + i)
+    stepped = prefill is not None or decode is not None
+    prefill = prefill or functools.partial(apply_lm_prefill, cfg)
+    decode = decode or functools.partial(apply_lm_decode, cfg)
+    with torch.no_grad() if stepped else torch.inference_mode():
+        b, s = prompt.shape
+        caches = init_caches(cfg, b, s + max_new, prompt.device)
+        logits, caches = prefill(params, prompt, caches, attn_mask=attn_mask, media=media)
         tok = torch.argmax(logits[:, -1, : cfg.vocab_size], dim=-1)[:, None]
-        out.append(tok)
-    return torch.cat(out, dim=1).to(torch.int32)
+        out = [tok]
+        for i in range(max_new - 1):
+            logits, caches = decode(params, tok, caches, s + i)
+            tok = torch.argmax(logits[:, -1, : cfg.vocab_size], dim=-1)[:, None]
+            out.append(tok)
+        return torch.cat(out, dim=1).to(torch.int32)

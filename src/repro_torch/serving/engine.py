@@ -14,6 +14,7 @@ from its active parameter count: 2*N_active FLOPs/token at a fixed $/FLOP.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -51,17 +52,29 @@ class PoolMember:
     """One member of the pool. ``media`` (1, n_frontend_tokens,
     frontend_dim) is a member's stub media, given to every request it
     serves, for a config with cross-attention layers (``build_pool``
-    makes it); None otherwise."""
+    makes it); None otherwise. ``mesh`` is the ``DeviceMesh`` the params
+    and media lie on as DTensors, once
+    ``distributed/shard.py::shard_pool(..., mesh=...)`` has laid them out;
+    None for whole tensors on one device."""
 
     name: str
     cfg: object
     params: Dict
     cost_rate: float
     media: Optional[torch.Tensor] = None
+    mesh: Optional[object] = None
+    # The greedy loop bound to the member's layout
+    # (``launch/steps.py::make_generate``), set by ``shard_pool``; None runs
+    # ``lm.greedy_generate`` on the member's device.
+    greedy: Optional[Callable] = dataclasses.field(default=None, repr=False,
+                                                   compare=False)
 
     @property
     def device(self) -> torch.device:
-        return self.params["embedding"]["table"].device
+        """The device of the member's params (of this rank's shards on a
+        mesh)."""
+        table = self.params["embedding"]["table"]
+        return table.to_local().device if self.mesh is not None else table.device
 
     def batch_media(self, batch: int) -> Optional[torch.Tensor]:
         """The stub media expanded over ``batch`` rows (a view), or None."""
@@ -69,11 +82,12 @@ class PoolMember:
 
     def generate(self, prompts: torch.Tensor, max_new: int = 8,
                  attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Greedy tokens (B, max_new) int32 for the left-padded ``prompts``
+        (B, S), whole on the member's device."""
+        greedy = self.greedy or functools.partial(lm_mod.greedy_generate, self.cfg)
         mask = None if attn_mask is None else attn_mask.to(self.device)
-        return lm_mod.greedy_generate(self.cfg, self.params,
-                                      prompts.to(self.device), max_new,
-                                      attn_mask=mask,
-                                      media=self.batch_media(prompts.shape[0]))
+        return greedy(self.params, prompts.to(self.device), max_new, attn_mask=mask,
+                      media=self.batch_media(prompts.shape[0]))
 
 
 def _batch_width(prompts: Sequence[np.ndarray], cfg) -> int:

@@ -7,8 +7,11 @@ Four processes join a gloo group over a ``FileStore`` at STORE, build
 NAMES (comma-separated), take the loss and every gradient of
 ``make_grad_step`` on the mesh, the prefill logits and two decode steps'
 logits, from the params ``init_lm`` makes under seed 0 and a batch drawn
-from numpy seed 1. Rank 0 writes them, gathered, to the npz OUT. The
-module imports no JAX.
+from numpy seed 1; then each config's smoke pool member, built by
+``serve.build_pool`` and laid out by ``shard_pool(..., mesh=...)``,
+serves ragged left-padded prompts through ``generate_member`` (tokens
+and $ costs). Rank 0 writes them, gathered, to the npz OUT. The module
+imports no JAX.
 """
 import sys
 
@@ -18,11 +21,14 @@ import torch.distributed as dist
 
 from repro_torch.common.tree import flatten_with_paths
 from repro_torch.configs import get_smoke_config
+from repro_torch.distributed.shard import shard_pool
 from repro_torch.launch import mesh as mesh_mod
-from repro_torch.launch import sharding, steps
+from repro_torch.launch import serve, sharding, steps
 from repro_torch.models import lm
+from repro_torch.serving.engine import RoutedEngine
 
 B, S = 4, 16
+PROMPT_LENS, MAX_NEW = (5, 16, 9, 12), 4
 
 
 def batch_tokens(cfg) -> torch.Tensor:
@@ -59,6 +65,32 @@ def run(names, mesh=None):
     return res
 
 
+def serve_prompts(vocab: int):
+    """Ragged prompts (numpy seed 2) for ``generate_member``: four rows,
+    left-padded by the engine into one batch of B."""
+    rng = np.random.default_rng(2)
+    return [rng.integers(0, vocab, size=n).astype(np.int32) for n in PROMPT_LENS]
+
+
+def run_serve(names, mesh=None):
+    """{key: array}: each config's tokens and $ costs from
+    ``generate_member`` on its smoke pool member (seed 0), laid out on
+    ``mesh`` by ``shard_pool`` (None: whole on the CPU). Every rank makes
+    the same calls in the same order."""
+    res = {}
+    pool = serve.build_pool(names, seed=0, device="cpu", smoke=True)
+    if mesh is not None:
+        shard_pool(pool, 0, 1, mesh=mesh)
+    engine = RoutedEngine(router=serve.init_router(len(pool), device="cpu"), pool=pool,
+                          device="cpu")
+    for mi, name in enumerate(names):
+        outs, costs = engine.generate_member(mi, serve_prompts(pool[mi].cfg.vocab_size),
+                                             max_new=MAX_NEW)
+        res[f"{name}/serve"] = np.stack(outs)
+        res[f"{name}/serve_cost"] = costs
+    return res
+
+
 def _whole(t: torch.Tensor) -> np.ndarray:
     return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach().numpy()
 
@@ -68,7 +100,8 @@ def main(argv):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store, 4), rank=rank, world_size=4)
     try:
-        res = run(names, mesh_mod.make_debug_mesh(2, 2, device="cpu"))
+        mesh = mesh_mod.make_debug_mesh(2, 2, device="cpu")
+        res = {**run(names, mesh), **run_serve(names, mesh)}
         if rank == 0:
             np.savez(out, **res)
     finally:

@@ -4,8 +4,9 @@ recurrent members (xlstm-1.3b, the jamba hybrid), the last three
 configs (musicgen-large, llama4-maverick, cross attention with
 llama-3.2-vision and its stub media), the Mamba scan's gradient, the
 online adaptation and cascade layers, the kernel-dispatch profiler, the
-socket fleet's two processes, an LM train step, and the train, prefill
-and decode steps on a 1x1 NCCL mesh, on the card.
+socket fleet's two processes, an LM train step, the train, prefill
+and decode steps on a 1x1 NCCL mesh, and a pool served on that mesh, on
+the card.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (marker ``cuda``) and
 skips without one: a CUDA kernel has no CPU mode. The file imports no JAX,
@@ -938,3 +939,38 @@ def test_mesh_steps_on_an_nccl_1x1_mesh_equal_the_plain_steps(nccl_mesh, cuda, n
             dparams, {"token": sharding.distribute_batch(mesh, {"t": nxt})["t"],
                       "caches": caches_m, "pos": 64 + i})
         torch.testing.assert_close(out_m.full_tensor(), out_p, rtol=0, atol=1e-5)
+
+
+def test_mesh_served_tokens_on_an_nccl_1x1_mesh_equal_the_cpus(nccl_mesh, cuda):
+    """The default smoke pool, seeded on the CPU, moved to the card and laid
+    out by ``shard_pool(..., mesh=...)`` on a 1x1 NCCL mesh: every member's
+    ``generate_member`` tokens and $ equal the CPU pool's, the params are
+    DTensors whose shards lie on the card, the router still scores through
+    the kernel."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.common.tree import flatten_with_paths
+    from repro_torch.distributed.shard import shard_pool
+    from repro_torch.launch.serve import build_pool, init_router
+
+    names = DEFAULT_POOL.split(",")
+    cpu = RoutedEngine(router=init_router(3, device="cpu"),
+                       pool=build_pool(names, device="cpu", smoke=True), device="cpu")
+    card = RoutedEngine(router=init_router(3, device=cuda),
+                        pool=build_pool(names, device="cpu", smoke=True), device=cuda)
+    shard_pool(card.pool, 0, 1, device=cuda)
+    assert shard_pool(card.pool, 0, 1, mesh=nccl_mesh) == [0, 1, 2]
+    rng = np.random.default_rng(3)
+    for mi, member in enumerate(card.pool):
+        assert member.device.type == "cuda"
+        assert all(isinstance(t, DTensor) for t in flatten_with_paths(member.params).values())
+        prompts = [rng.integers(0, member.cfg.vocab_size, size=n, dtype=np.int32)
+                   for n in (5, 17, 9, 12)]
+        want, want_costs = cpu.generate_member(mi, prompts, max_new=6)
+        got, costs = card.generate_member(mi, prompts, max_new=6)
+        np.testing.assert_array_equal(np.stack(got), np.stack(want))
+        np.testing.assert_array_equal(costs, want_costs)
+    before = router_xattn_cuda.launches
+    texts, prompts = synthetic_requests(4, 64, seed=1, min_len=3, max_len=12)
+    res = card.serve(texts, prompts, max_new=3)
+    assert router_xattn_cuda.launches == before + 1 and len(res["outputs"]) == 4

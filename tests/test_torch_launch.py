@@ -168,9 +168,8 @@ def test_train_step_on_a_zeros_batch_and_the_mesh_refusal():
     a zeros (4, 32) batch on smoke qwen3 gives a finite loss, unsharded and
     on a 1x1 gloo mesh (its process group destroyed after). What the port
     still refuses: a mesh that is not a ``DeviceMesh`` or lacks the
-    ``data``/``model`` dims, and a pool sharded over a mesh
-    (``distributed/shard.py::shard_pool`` takes none; serving on a mesh is
-    ROADMAP Queue 1)."""
+    ``data``/``model`` dims, in the steps, ``train_loop`` and
+    ``distributed/shard.py::shard_pool`` alike."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -200,8 +199,8 @@ def test_train_step_on_a_zeros_batch_and_the_mesh_refusal():
                 make(cfg, mesh=flat)
         with pytest.raises(TypeError, match="DeviceMesh"):
             train.train_loop(cfg, steps=1, batch=2, seq=8, mesh=object(), device="cpu")
-        with pytest.raises(TypeError, match="mesh"):
-            shard_pool([], 0, 1, mesh=mesh)
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            shard_pool([], 0, 1, mesh=object())
     finally:
         dist.destroy_process_group()
 

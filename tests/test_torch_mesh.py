@@ -17,7 +17,11 @@ Smoke configs on the CPU:
     qwen3, granite-moe, xlstm and jamba): the loss within 1e-5 of the
     unsharded port's, every gradient leaf
     within 1e-4 of its largest magnitude, the prefill and two decode
-    steps' logits within 1e-4;
+    steps' logits within 1e-4; each config's pool member laid out by
+    ``shard_pool(..., mesh=...)`` serves ragged prompts the unsharded
+    port's tokens and $ costs exactly (the unsharded port's are held to
+    the reference's ``greedy_generate`` in
+    ``tests/test_torch_mesh_serve.py``);
   * the dry-run as a child process: its 1x1 FLOPs equal to
     ``FlopCounterMode`` on the same real step (the fake 16x16 mesh's
     records are held in ``tests/test_torch_sharding.py``);
@@ -123,7 +127,8 @@ def test_train_step_on_a_1x1_mesh_matches_the_unsharded_port_and_the_reference(m
 
 def test_two_by_two_gloo_mesh_matches_the_unsharded_port(tmp_path):
     """Four processes; each gradient leaf within 1e-4 of its scale, the
-    loss within 1e-5, prefill and decode logits within 1e-4."""
+    loss within 1e-5, prefill and decode logits within 1e-4; the served
+    tokens and $ costs equal."""
     names = [QWEN, MOE_NAME, XLSTM, "jamba-1.5-large-398b"]
     out = tmp_path / "mesh.npz"
     script = os.path.join(ROOT, "tests", "_torch_mesh_worker.py")
@@ -137,10 +142,12 @@ def test_two_by_two_gloo_mesh_matches_the_unsharded_port(tmp_path):
             p.kill()
     assert [p.returncode for p in procs] == [0] * 4, results[0][1][-3000:]
     got = np.load(out)
-    want = worker.run(names)
+    want = {**worker.run(names), **worker.run_serve(names)}
     for key, w in want.items():
         g = got[key]
-        if "/grad/" in key:
+        if "/serve" in key:
+            np.testing.assert_array_equal(g, w, err_msg=key)
+        elif "/grad/" in key:
             assert np.abs(g - w).max() <= 1e-4 * max(np.abs(w).max(), 1e-30), key
         elif key.endswith("/loss"):
             assert abs(float(g) - float(w)) <= 1e-5, key
