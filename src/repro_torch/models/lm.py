@@ -59,6 +59,7 @@ from repro_torch.models.layers import (
     init_rmsnorm, lm_logits, token_cross_entropy,
 )
 from repro_torch.models.sharding_ctx import gather_fsdp, shard
+from repro_torch.models import trace_hook
 
 LOSS_SEQ_CHUNK = 512
 
@@ -457,18 +458,28 @@ def greedy_generate(cfg: ArchConfig, params: Dict, prompt: torch.Tensor,
     a mesh's steps, so that one loop serves both layouts. The loop runs
     under inference mode, or under ``no_grad`` with the steps given, as
     DTensor's dispatch refuses some of the model's ops in inference mode.
+
+    With a host tracer installed (:mod:`repro_torch.obs.host_trace`), the
+    cache set-up and prefill are a ``prefill`` span and each decode step a
+    ``decode_step`` span: host time to the step's last launch, no sync.
     """
     stepped = prefill is not None or decode is not None
     prefill = prefill or functools.partial(apply_lm_prefill, cfg)
     decode = decode or functools.partial(apply_lm_decode, cfg)
+    ht = trace_hook.TRACER
     with torch.no_grad() if stepped else torch.inference_mode():
+        t = 0.0 if ht is None else ht.now()
         b, s = prompt.shape
         caches = init_caches(cfg, b, s + max_new, prompt.device)
         logits, caches = prefill(params, prompt, caches, attn_mask=attn_mask, media=media)
         tok = torch.argmax(logits[:, -1, : cfg.vocab_size], dim=-1)[:, None]
         out = [tok]
+        if ht is not None:
+            t = ht.span("prefill", t, {"b": b, "s": s})
         for i in range(max_new - 1):
             logits, caches = decode(params, tok, caches, s + i)
             tok = torch.argmax(logits[:, -1, : cfg.vocab_size], dim=-1)[:, None]
             out.append(tok)
+            if ht is not None:
+                t = ht.span("decode_step", t, {"i": i})
         return torch.cat(out, dim=1).to(torch.int32)

@@ -17,7 +17,10 @@ Pillars over the serving fleet:
     registry (``/metrics`` Prometheus text, ``/metrics.json``);
   * :mod:`repro_torch.obs.profiling` — wall-clock (+ optional torch
     profiler) timing hooks around the port's kernel entry points, synced
-    to the device inside each span.
+    to the device inside each span;
+  * :mod:`repro_torch.obs.host_trace` — host spans and counters inside the
+    routing, the generate call and the decode loop, on a clock that lines
+    up with a device trace; off unless installed.
 
 The port of ``repro.obs``, the same exports. ``repro_torch.obs.wiring``
 registers the standard serving metric series; ``repro_torch.launch.serve``

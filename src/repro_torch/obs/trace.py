@@ -16,9 +16,10 @@ Design constraints, in order:
     (admission order, never the process-global ``rid`` counter, which
     shifts between in-process replays), and the export serializes with
     sorted keys — so a seeded run's trace is bit-identical across
-    replays. The only wall-clock events are kernel-profiling spans, which
-    live in the ``WALL_CATS`` categories and are excluded from the
-    deterministic export.
+    replays. The only wall-clock events are kernel-profiling spans and the
+    host tracer's spans (:mod:`repro_torch.obs.host_trace`), which live in
+    the ``WALL_CATS`` categories and are excluded from the deterministic
+    export.
   * **Cheap when off.** Every integration point is an ``if tracer is not
     None`` branch; with no recorder installed the runtime does zero extra
     work. When on, recording one event is a single tuple append.
@@ -52,7 +53,7 @@ from repro_torch.obs.sampling import is_anomaly_event
 
 # Categories whose events carry wall-clock measurements; excluded from the
 # deterministic export (and therefore from replay bit-identity checks).
-WALL_CATS = frozenset({"kernel"})
+WALL_CATS = frozenset({"kernel", "host"})
 
 # Event tuple layout (kept a tuple, not a dict/dataclass: recording must be
 # a single append on the scheduler hot path).

@@ -28,6 +28,7 @@ from repro_torch.core.router import PredictiveRouter
 from repro_torch.data.featurizer import embed_texts
 from repro_torch.kernels import ops as kops
 from repro_torch.models import lm as lm_mod
+from repro_torch.models import trace_hook
 
 # $ per 1e12 FLOPs — anchors active-param FLOPs to an API-like price axis.
 DOLLARS_PER_TFLOP = 2.2e-4
@@ -123,6 +124,13 @@ def prompt_pad_mask(prompts: Sequence[np.ndarray], cfg) -> torch.Tensor:
     return torch.from_numpy(mask)
 
 
+def _featurize(texts: Sequence[str]) -> np.ndarray:
+    ht = trace_hook.TRACER
+    if ht is None:
+        return embed_texts(texts)
+    return ht.call("featurize", embed_texts, texts, n=len(texts))
+
+
 @dataclasses.dataclass
 class RoutedEngine:
     """Stateless scoring/dispatch core: the router and the model pool.
@@ -160,8 +168,14 @@ class RoutedEngine:
         """Invalidate cached projections after the pool/router changes."""
         self._pool_proj = None
 
-    @torch.inference_mode()
     def _scores(self, q_emb: np.ndarray):
+        ht = trace_hook.TRACER
+        if ht is None:
+            return self._score_pass(q_emb)
+        return ht.call("score", self._score_pass, q_emb, n=len(q_emb))
+
+    @torch.inference_mode()
+    def _score_pass(self, q_emb: np.ndarray):
         if not (self.use_kernel and self.router.quality_kind == "attn"):
             return self.router.predict(q_emb)
         qp = self.router.quality_params
@@ -178,7 +192,7 @@ class RoutedEngine:
     def embed(self, texts: Sequence[str]) -> np.ndarray:
         """Query embeddings (B, 768) numpy, float64 as the featurizer gives
         them; scoring narrows them to float32."""
-        return embed_texts(texts)
+        return _featurize(texts)
 
     def score_emb(self, q_emb: np.ndarray):
         """(s_hat, c_hat), both (B, K) numpy, from precomputed embeddings."""
@@ -197,7 +211,7 @@ class RoutedEngine:
 
     def score_texts(self, texts: Sequence[str]):
         """(s_hat, c_hat), both (B, K) numpy — one fused pass over the batch."""
-        return self._scores(embed_texts(texts))
+        return self._scores(_featurize(texts))
 
     # -- router swaps -------------------------------------------------------
 
@@ -220,6 +234,12 @@ class RoutedEngine:
                lam: Optional[float] = None) -> np.ndarray:
         """Reward argmax over the pool at willingness-to-pay ``lam``."""
         lam = self.lam if lam is None else lam
+        ht = trace_hook.TRACER
+        if ht is None:
+            return self._choose(s_hat, c_hat, lam)
+        return ht.call("choose", self._choose, s_hat, c_hat, lam, n=len(s_hat))
+
+    def _choose(self, s_hat, c_hat, lam: float) -> np.ndarray:
         r = REWARDS[self.router.reward](torch.from_numpy(np.asarray(s_hat)),
                                         torch.from_numpy(np.asarray(c_hat)), lam)
         return np.argmax(r.numpy(), axis=-1)
@@ -245,12 +265,22 @@ class RoutedEngine:
         given), at the member's per-token rate.
         """
         member = self.pool[member_idx]
-        toks = member.generate(pad_prompts(prompts, member.cfg), max_new=max_new,
-                               attn_mask=prompt_pad_mask(prompts, member.cfg)).cpu().numpy()
-        outs = [toks[i] for i in range(len(prompts))]
-        per_tok = member.cost_rate / REF_TOKENS_OUT
         caps = (max_new_per_req if max_new_per_req is not None
                 else [max_new] * len(prompts))
+        ht = trace_hook.TRACER
+        t0 = ht.now() if ht is not None else 0.0
+        padded, mask = pad_prompts(prompts, member.cfg), prompt_pad_mask(prompts, member.cfg)
+        if ht is not None:
+            ht.span("pad", t0)
+        out = member.generate(padded, max_new=max_new, attn_mask=mask)
+        t = ht.now() if ht is not None else 0.0
+        toks = out.cpu().numpy()
+        if ht is not None:
+            ht.span("to_host", t)
+            ht.generate(member.name, t0, [len(p) for p in prompts], caps, max_new,
+                        padded.shape[1])
+        outs = [toks[i] for i in range(len(prompts))]
+        per_tok = member.cost_rate / REF_TOKENS_OUT
         costs = np.asarray(
             [per_tok * (len(np.asarray(p)) + min(len(o), int(cap)))
              for p, o, cap in zip(prompts, outs, caps)], np.float64)

@@ -4,9 +4,9 @@ recurrent members (xlstm-1.3b, the jamba hybrid), the last three
 configs (musicgen-large, llama4-maverick, cross attention with
 llama-3.2-vision and its stub media), the Mamba scan's gradient, the
 online adaptation and cascade layers, the kernel-dispatch profiler, the
-socket fleet's two processes, an LM train step, the train, prefill
-and decode steps on a 1x1 NCCL mesh, and a pool served on that mesh, on
-the card.
+host tracer, the socket fleet's two processes, an LM train step, the
+train, prefill and decode steps on a 1x1 NCCL mesh, and a pool served on
+that mesh, on the card.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (marker ``cuda``) and
 skips without one: a CUDA kernel has no CPU mode. The file imports no JAX,
@@ -28,7 +28,9 @@ from repro_torch.kernels.pairwise_l2 import pairwise_l2_cuda
 from repro_torch.kernels.router_xattn import router_xattn_cuda
 from repro_torch.common.tree import tree_map
 from repro_torch.configs import get_smoke_config
-from repro_torch.launch.serve import DEFAULT_POOL, build_engine, stub_media, synthetic_requests
+from repro_torch.launch.serve import (
+    DEFAULT_POOL, build_engine, build_pool, init_router, stub_media, synthetic_requests,
+)
 from repro_torch.configs.base import ATTN, MLP, XATTN, LayerSpec
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import lm, moe, ssm, xlstm
@@ -436,6 +438,47 @@ def test_build_engine_serves_the_default_pool_on_the_card(cuda):
     outs, costs = engine.generate_member(mi, prompts, max_new=4)
     assert all(len(o) == 4 and 0 <= o.min() and o.max() < 512 for o in outs)
     assert np.all(costs > 0)
+
+
+def test_host_tracer_adds_no_sync_and_changes_nothing_on_the_card(cuda):
+    """With the host tracer installed, a generate call and a routing pass
+    on the card give the same tokens, $ and scores as without it, and
+    synchronize no more often (the sync debug mode warns at each sync; its
+    own warning that it is a prototype, given once, is not counted)."""
+    import warnings
+
+    from repro_torch.obs import TraceRecorder, host_trace
+    names = ["qwen3-0.6b", "granite-3-8b"]
+    engine = RoutedEngine(router=init_router(2, device=cuda),
+                          pool=build_pool(names, smoke=True, device=cuda), device=cuda)
+    texts, prompts = synthetic_requests(6, 512, seed=1, min_len=3, max_len=20)
+    # Warm up both paths: the first scoring pass caches the pool's
+    # projections, which copies to the card once.
+    engine.generate_member(1, prompts, max_new=2)
+    engine.score_texts(texts)
+    runs = []
+    for on in (False, True):
+        tracer = host_trace.HostTracer(TraceRecorder()) if on else None
+        host_trace.set_host_tracer(tracer)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                outs, costs = engine.generate_member(1, prompts, max_new=5,
+                                                     max_new_per_req=[5, 1, 2, 5, 3, 4])
+                s_hat, c_hat = engine.score_texts(texts)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            host_trace.set_host_tracer(None)
+        syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+        runs.append((outs, costs, s_hat, c_hat, syncs, tracer))
+    (o0, k0, s0, c0, n0, _), (o1, k1, s1, c1, n1, tracer) = runs
+    assert all(np.array_equal(a, b) for a, b in zip(o0, o1)) and np.array_equal(k0, k1)
+    assert np.array_equal(s0, s1) and np.array_equal(c0, c1)
+    assert n1 == n0 > 0
+    names_seen = [name for name, _t0, _dur, _args in tracer.spans()]
+    assert names_seen.count("decode_step") == 4
+    assert {"featurize", "score", "generate", "pad", "prefill", "to_host"} <= set(names_seen)
 
 
 # ---------------------------------------------------------------------------
